@@ -1,0 +1,132 @@
+"""Declarative scenario data model — counterpart of
+``repro/scenarios/spec.py``.
+
+A frozen ``ScenarioSpec`` declares data source x partition x model x
+batching; ``materialize`` (``scenarios.registry``) turns it into the
+concrete ``Scenario`` bundle that ``repro_torch.api.build_experiment``
+consumes.  ``PartitionSpec`` is the heterogeneity control; the
+``dirichlet`` and ``iid`` kinds are ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, Optional, Union
+
+import numpy as np
+
+from repro_torch.data.partition import dirichlet_partition, iid_partition
+
+
+class UnknownScenarioError(ValueError):
+    """Name resolves to no registered ``ScenarioSpec``."""
+
+
+class DuplicateScenarioError(ValueError):
+    """``register`` called twice for the same scenario name."""
+
+
+PARTITION_KINDS = ("dirichlet", "iid")
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionSpec:
+    """How samples are split across clients: ``kind`` one of
+    ``PARTITION_KINDS``; ``alpha`` the Dirichlet concentration."""
+    kind: str = "dirichlet"
+    alpha: float = 0.1
+    min_size: int = 2
+
+    def __post_init__(self):
+        if self.kind not in PARTITION_KINDS:
+            raise ValueError(
+                f"unknown or unported partition kind {self.kind!r} "
+                f"(want one of {PARTITION_KINDS})")
+        if self.kind == "dirichlet" and self.alpha <= 0:
+            raise ValueError(f"alpha must be > 0, got {self.alpha}")
+
+    def build(self, labels: Optional[np.ndarray], n_samples: int,
+              n_clients: int, seed: int):
+        """A list of ``n_clients`` index arrays."""
+        if self.kind == "iid":
+            return iid_partition(n_samples, n_clients, seed=seed)
+        if labels is None:
+            raise ValueError(
+                f"partition kind {self.kind!r} needs labels, but this "
+                "scenario's data source provides none")
+        return dirichlet_partition(labels, n_clients, self.alpha, seed=seed,
+                                   min_size=self.min_size)
+
+    def tag(self) -> str:
+        """Short name for sweep rows / derived-variant names."""
+        if self.kind == "dirichlet":
+            return f"dir{self.alpha:g}"
+        return "iid"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioSpec:
+    """One federated task, declaratively.
+
+    source: data-source family key (``"synth_image"``) or a callable
+      materializer ``(spec, seed, n_clients, device) -> Scenario``.
+    model: model-factory key of the source family (``"cnn"`` | ``"vit"``).
+    source_kwargs / model_kwargs: family-specific knobs over its defaults.
+    """
+    name: str
+    source: Union[str, Callable] = "synth_image"
+    partition: PartitionSpec = PartitionSpec()
+    model: str = "cnn"
+    n_clients: int = 10
+    batch_size: int = 16
+    source_kwargs: Mapping = dataclasses.field(default_factory=dict)
+    model_kwargs: Mapping = dataclasses.field(default_factory=dict)
+    description: str = ""
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("a ScenarioSpec needs a non-empty name")
+        if self.n_clients < 1:
+            raise ValueError(f"n_clients must be >= 1, got {self.n_clients}")
+        if self.batch_size < 1:
+            raise ValueError(
+                f"batch_size must be >= 1, got {self.batch_size}")
+
+    def variant(self, suffix: str, **changes) -> "ScenarioSpec":
+        """Renamed derived spec with field overrides."""
+        return dataclasses.replace(self, name=f"{self.name}_{suffix}",
+                                   **changes)
+
+
+def check_source_kwargs(spec: "ScenarioSpec", defaults: Mapping) -> dict:
+    """Defaults overlaid with the spec's knobs; unknown keys are an error."""
+    unknown = set(spec.source_kwargs) - set(defaults)
+    if unknown:
+        raise ValueError(
+            f"scenario {spec.name!r}: unknown source_kwargs "
+            f"{sorted(unknown)} (this source understands "
+            f"{sorted(defaults)})")
+    kw = dict(defaults)
+    kw.update(spec.source_kwargs)
+    return kw
+
+
+@dataclasses.dataclass
+class Scenario:
+    """A materialized scenario: the concrete problem the runtime consumes.
+    ``problem()`` returns ``(params, loss_fn, client_batch_fn, eval_fn)``;
+    ``device`` is where params and eval data live."""
+    spec: ScenarioSpec
+    seed: int
+    n_clients: int
+    params: Any
+    loss_fn: Callable
+    client_batch_fn: Callable
+    eval_fn: Optional[Callable]
+    device: Any = "cpu"
+    partitions: Optional[list] = None
+    partition_stats: dict = dataclasses.field(default_factory=dict)
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def problem(self):
+        return (self.params, self.loss_fn, self.client_batch_fn,
+                self.eval_fn)

@@ -1,0 +1,222 @@
+"""The port's round engine and sync runtime against the JAX package: the
+fused dense server flush (``aggregate_wire``), ``aggregate``, the
+``"auto"`` geometry controller, and the whole slice — ``build_experiment``
+on ``cifar_like_cnn`` for ``local_soap`` and ``fedpac_soap``, 3 rounds,
+with the JAX-initialised params carried in.
+
+Tolerances:
+  * engine: 1e-6 absolute + 1e-5 relative — the same f32 sums and means
+    taken in other orders; byte counts exact.
+  * whole rounds: the mean local loss 5e-3 absolute, the global
+    test_loss 2e-2 (the eval set sees the whole parameter gap), drift
+    and norm_drift 5% relative, test_acc 6/768 (six eval images).  Both
+    sides run at ``eps=1e-3``.  Every round restarts SOAP from zero L/R (round 1 of
+    fedpac too), so each round's first refresh orthogonalises a
+    rank-deficient G G^T whose null-space basis is set by roundoff and
+    differs between LAPACK builds; Adam's elementwise normalisation is
+    not rotation-invariant, so later steps' gradient components in those
+    directions are treated differently.  eps=1e-3 damps the amplification;
+    the remaining gap is what these tolerances absorb.  They are two
+    orders tighter than the gap between fedpac_soap and local_soap
+    (asserted below).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import build_experiment as jax_build
+from repro.core import transport as JT
+from repro.core.engine import (
+    AggregationConfig as JaxAggCfg, aggregate as jax_aggregate,
+    aggregate_wire as jax_aggregate_wire, make_controller as jax_controller,
+    update_controller as jax_update_controller,
+)
+from repro_torch.api import build_experiment, materialize
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import transport as T
+from repro_torch.core.engine import (
+    AggregationConfig, aggregate, aggregate_wire, make_controller,
+    update_controller,
+)
+from repro_torch.fed.rounds import FedConfig
+from repro_torch.utils.tree import tree_flatten_with_path
+
+ROUNDS = 3
+EPS = 1e-3
+TOL = {"loss": 5e-3, "test_loss": 2e-2, "test_acc": 6 / 768}
+REL_TOL = {"drift": 0.05, "norm_drift": 0.05}
+
+
+def _assert_close(want_tree, got_tree, rtol=1e-5, atol=1e-6):
+    want = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+    got = tree_flatten_with_path(got_tree)
+    assert len(want) == len(got)
+    for (wp, w), (gp, g) in zip(want, got):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=rtol, atol=atol, err_msg=str(gp))
+
+
+# ------------------------------------------------------------------ engine
+
+def _cohort(s, seed):
+    r = np.random.default_rng(seed)
+
+    def f(*shape):
+        return r.standard_normal(shape).astype(np.float32)
+
+    params = {"a": f(4, 6), "b": {"c": f(5)}}
+    theta = {"LR": {"a": {"L": f(4, 4), "R": f(6, 6)}, "b": {"c": None}}}
+    g_global = {"a": f(4, 6), "b": {"c": f(5)}}
+    deltas = {"a": f(s, 4, 6), "b": {"c": f(s, 5)}}
+    thetas = {"LR": {"a": {"L": f(s, 4, 4), "R": f(s, 6, 6)},
+                     "b": {"c": None}}}
+    return params, theta, g_global, deltas, thetas
+
+
+def _t(tree):
+    return params_from_numpy(tree, "cpu")
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("weights", [[1.0, 1.0, 1.0, 1.0],
+                                     [1.0, 0.5, 0.25, 0.8]])
+def test_aggregate_wire_matches_jax(align, weights):
+    s = len(weights)
+    params, theta, g, deltas, thetas = _cohort(s, 7)
+    w = np.asarray(weights, np.float32)
+    jtr = JT.Transport(delta=JT.Dense(), theta=JT.Dense())
+    jd = jax.vmap(jtr.delta.encode)(deltas)
+    jt = jax.vmap(jtr.theta.encode)(thetas)
+    jcfg = JaxAggCfg(lr=0.01, local_steps=5, server_lr=0.7, align=align)
+    want = jax_aggregate_wire(
+        params, theta, g, jd, jnp.asarray(w), jcfg, jtr,
+        tmsgs=jt if align else None, thetas=None if align else thetas)
+
+    ttr = T.Transport(delta=T.Dense(), theta=T.Dense())
+    td = ttr.delta.encode(_t(deltas))
+    tt = ttr.theta.encode(_t(thetas))
+    cfg = AggregationConfig(lr=0.01, local_steps=5, server_lr=0.7,
+                            align=align)
+    got = aggregate_wire(
+        _t(params), _t(theta), _t(g), td, torch.from_numpy(w), cfg, ttr,
+        tmsgs=tt if align else None, thetas=None if align else _t(thetas))
+    for i in range(3):            # params, theta, g_global
+        _assert_close(want[i], got[i])
+    for k in ("drift", "norm_drift", "freshness"):
+        np.testing.assert_allclose(float(got[3][k]), float(want[3][k]),
+                                   rtol=1e-5, atol=1e-6)
+    _assert_close(want[4]["step"], got[4]["step"])
+    assert T.wire_bytes(td) == JT.wire_bytes(jd)
+    assert T.wire_bytes(tt) == JT.wire_bytes(jt)
+
+
+def test_aggregate_matches_jax():
+    params, theta, g, deltas, thetas = _cohort(3, 8)
+    w = np.asarray([1.0, 0.6, 0.9], np.float32)
+    jcfg = JaxAggCfg(lr=0.02, local_steps=3)
+    want = jax_aggregate(params, theta, g, deltas, thetas, jnp.asarray(w),
+                         jcfg)
+    got = aggregate(_t(params), _t(theta), _t(g), _t(deltas), _t(thetas),
+                    torch.from_numpy(w), AggregationConfig(lr=0.02,
+                                                           local_steps=3))
+    for i in range(3):
+        _assert_close(want[i], got[i])
+    for k in ("drift", "norm_drift", "freshness"):
+        np.testing.assert_allclose(float(got[3][k]), float(want[3][k]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("ema", [1.0, 0.3])
+def test_auto_controller_steps_match_jax(ema):
+    jc = jax_controller("auto", beta_max=0.7, ema=ema)
+    tc = make_controller("auto", beta_max=0.7, ema=ema)
+    assert tc.adaptive and float(tc.beta) == float(jc.beta) == 0.0
+    for nd, fresh in [(0.4, 1.0), (2.5, 0.5), (0.01, 1.0)]:
+        jc = jax_update_controller(jc, jnp.float32(nd), fresh)
+        tc = update_controller(tc, torch.tensor(nd), fresh)
+        assert abs(float(tc.beta) - float(jc.beta)) < 1e-6
+        assert abs(float(tc.drift_ema) - float(jc.drift_ema)) < 1e-6
+    fixed = make_controller(0.5, correct=True)
+    assert update_controller(fixed, torch.tensor(3.0)) is fixed
+    assert float(make_controller(0.5, correct=False).beta) == 0.0
+
+
+# ------------------------------------------------------------ whole slice
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    out = {}
+    for algo in ("local_soap", "fedpac_soap"):
+        exp = jax_build(algo, scenario="cifar_like_cnn", rounds=ROUNDS,
+                        opt_kwargs={"eps": EPS})
+        out[algo] = (exp.run(), exp.comm_bytes_per_round(),
+                     jax.tree.map(np.asarray, exp.scenario.params))
+    return out
+
+
+def _port_run(algo, jax_params):
+    scn = materialize("cifar_like_cnn", seed=0, n_clients=10, device="cpu")
+    scn = dataclasses.replace(scn, params=params_from_numpy(jax_params, "cpu"))
+    exp = build_experiment(algo, scenario=scn, rounds=ROUNDS, device="cpu",
+                           opt_kwargs={"eps": EPS})
+    return exp.run(), exp.comm_bytes_per_round()
+
+
+def _mismatches(want_hist, got_hist):
+    bad = []
+    for r, (w, g) in enumerate(zip(want_hist, got_hist)):
+        for k, tol in TOL.items():
+            if abs(w[k] - g[k]) > tol:
+                bad.append((r, k, w[k], g[k]))
+        for k, tol in REL_TOL.items():
+            if abs(w[k] - g[k]) > tol * abs(w[k]):
+                bad.append((r, k, w[k], g[k]))
+    return bad
+
+
+@pytest.mark.parametrize("algo", ["local_soap", "fedpac_soap"])
+def test_slice_history_matches_jax(jax_runs, algo):
+    want, want_bytes, jax_params = jax_runs[algo]
+    got, got_bytes = _port_run(algo, jax_params)
+    assert len(got) == len(want) == ROUNDS
+    assert _mismatches(want, got) == []
+    for w, g in zip(want, got):
+        assert g["round"] == w["round"]
+        for k in ("upload_bytes", "upload_total_bytes", "cohort_size",
+                  "beta", "freshness"):
+            assert g[k] == w[k], k
+    assert got_bytes == want_bytes
+    # the tolerance tells the two algorithms apart
+    other = "local_soap" if algo == "fedpac_soap" else "fedpac_soap"
+    assert _mismatches(jax_runs[other][0], got) != []
+
+
+@pytest.mark.parametrize("algo", ["local_soap", "fedpac_soap"])
+def test_slice_at_default_settings_trains(algo):
+    """Not parity: at the default eps the first refresh's roundoff is
+    amplified to O(1) (see the module docstring), so histories are not
+    compared.  The port must still train: finite losses, and the global
+    test loss below the initial model's after the rounds (participation
+    0.5, as the quickstart runs it)."""
+    exp = build_experiment(algo, scenario="cifar_like_cnn", rounds=ROUNDS,
+                           participation=0.5, device="cpu")
+    init = float(exp.eval_fn(exp.server.params)["test_loss"])
+    hist = exp.run()
+    assert all(np.isfinite(r[k]) for r in hist
+               for k in ("loss", "test_loss", "drift", "norm_drift"))
+    assert hist[-1]["test_loss"] < init
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FedConfig()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_experiment("fedpac_soap", scenario="cifar_like_cnn")
+    with pytest.raises(RuntimeError, match="cuda"):
+        materialize("cifar_like_cnn")
+    assert FedConfig(device="cpu").device == "cpu"

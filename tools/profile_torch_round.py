@@ -1,0 +1,110 @@
+"""Profile one sync ``fedpac_soap`` round of the PyTorch port on the GPU.
+
+    python3 tools/profile_torch_round.py [--out DIR]
+
+Runs the ViT-Tiny main path of ``chip_smoke.py`` (10 clients at
+participation 0.5, K=10), warms up one round, then traces one round with
+``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
+time, the summed device time of all CUDA kernels and the device-busy share
+(kernel time over wall time), device time grouped by kind of work, and the
+top operators by device time and by host time.  The full tables go to
+``<out>/profile_round.txt`` (default ``build/profile/``, gitignored).
+Needs a CUDA device; imports nothing of JAX.
+"""
+import argparse
+import collections
+import os
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+# device-time groups, matched in order against kernel/operator names
+GROUPS = [
+    ("matmul_fused kernel", ("matmul_fused",)),
+    ("adam_moments kernel", ("adam_moments",)),
+    ("QR refresh (geqrf/orgqr/householder)",
+     ("geqrf", "orgqr", "householder", "larft", "larfb", "qr")),
+    ("GEMM (cuBLAS: model, refresh product)", ("gemm", "sgemm", "cutlass",
+                                               "xmma", "gemv")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit")),
+    ("elementwise / reduction", ("elementwise", "reduce", "vectorized",
+                                 "unrolled", "softmax", "norm", "index",
+                                 "cat", "copy", "fill")),
+]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_round: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line, vit_tiny_spec
+    from repro_torch.api import build_experiment, materialize
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    spec = vit_tiny_spec()
+    scn = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
+    exp = build_experiment("fedpac_soap", scenario=scn, participation=0.5,
+                           rounds=3)
+    exp.run_round()                      # warm-up: compiles, allocator
+    t0 = time.perf_counter()
+    exp.run_round()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    events = prof.key_averages()
+    dev_attr = ("self_device_time_total" if hasattr(events[0],
+                                                    "self_device_time_total")
+                else "self_cuda_time_total")
+    kernel_us = collections.Counter()
+    for e in events:
+        us = getattr(e, dev_attr)
+        if us > 0 and getattr(e, "device_type", None) is not None \
+                and str(e.device_type).endswith("CUDA"):
+            kernel_us[e.key] += us
+    total_ms = sum(kernel_us.values()) / 1e3
+    print(f"round {exp.server.round}: wall {wall:.3f} s traced, "
+          f"{plain_wall:.3f} s untraced; CUDA kernel time {total_ms:.1f} ms; "
+          f"device busy {100 * total_ms / 1e3 / wall:.1f}% of the traced "
+          f"wall time")
+    grouped = collections.Counter()
+    for name, us in kernel_us.items():
+        low = name.lower()
+        for label, pats in GROUPS:
+            if any(p in low for p in pats):
+                grouped[label] += us
+                break
+        else:
+            grouped["other"] += us
+    for label, us in grouped.most_common():
+        print(f"  {label:42s} {us / 1e3:9.2f} ms "
+              f"({100 * us / 1e3 / max(total_ms, 1e-9):5.1f}%)")
+    by_dev = events.table(sort_by=dev_attr, row_limit=25)
+    by_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
+    print(by_dev)
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "profile_round.txt")
+    with open(path, "w") as f:
+        f.write(by_dev + "\n\n" + by_cpu + "\n")
+    print(f"tables written to {os.path.relpath(path, ROOT)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
