@@ -2,21 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's Hopper kernels from this checkout's sources, holds each
+Builds the port's Hopper kernels from this checkout's sources (one
+``nvcc`` per CUDA source, all started together, and Triton's), holds each
 against its plain PyTorch version on the card at the main path's shapes
-(and times kernel, plain version, a PyTorch library yardstick and the
-card's bound), then drives the main path — the sync ``local_soap`` and
-``fedpac_soap`` rounds at ViT-Tiny width, and ``fedpac_soap`` on the
-registered ``cifar_like_cnn`` — through ``repro_torch.api
-.build_experiment``, checking that every kernel was launched there.  The
-CNN run is repeated on the CPU (plain versions) from the same weights and
-the two histories must agree.
+(and times kernel, plain version, a PyTorch library yardstick where one
+exists, and the card's bound), then drives the port's paths through
+``repro_torch.api.build_experiment``, each with the launch counters set
+to 0 just before it and read just after:
+
+  * SOAP: ``local_soap`` and ``fedpac_soap`` at ViT-Tiny width, and
+    ``fedpac_soap`` on the registered ``cifar_like_cnn``;
+  * Sophia: ``local_sophia``, ``fedpac_sophia`` and ``fedpac_sophia`` with
+    the qblock int8 wire on both channels and error feedback, at ViT-Tiny
+    width, and that last one on ``cifar_like_cnn``.
+
+Each path fails if one of its kernels was never launched.  The two CNN
+runs are repeated on the CPU (plain versions) from the same weights (and,
+for Sophia, the same Hutchinson probes), and the histories must agree.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 on a host without CUDA, and outside a checkout of the repository.
 Imports nothing of JAX.
 """
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -41,6 +50,17 @@ U = 2.0 ** -24
 CNN_EPS = 1e-3
 CNN_TOL = {"loss": 5e-3, "test_loss": 2e-2, "test_acc": 6 / 768}
 CNN_REL_TOL = {"drift": 0.05, "norm_drift": 0.05}
+# Sophia paths: the repo's vision Sophia lr (benchmarks/common.py) and the
+# qblock wire with error feedback.  CNN GPU-vs-CPU agreement: ten times
+# the tolerances tests/test_torch_sophia.py holds the port to against the
+# JAX package (cuDNN and CPU convolutions sum in other orders, and a
+# roundoff-level change of a delta can move its int8 code by one quantum)
+SOPHIA_LR = 2e-2
+QBLOCK = dict(delta_codec="qblock", theta_codec="qblock",
+              error_feedback=True)
+SOPHIA_TOL = {"loss": 1e-3, "test_loss": 1e-3, "test_acc": 2 / 768}
+SOPHIA_REL_TOL = {"drift": 1e-2, "norm_drift": 1e-2}
+CUDA_SOURCES = ("matmul_fused.cu", "qblock.cu", "fused_agg.cu")
 
 
 def log(*a):
@@ -97,21 +117,35 @@ def device_ms(fn):
 # ------------------------------------------------------------------ build
 
 def build_kernels(dev):
+    """Every CUDA source built by its own nvcc, all started together, then
+    the Triton kernels compiled by a first launch."""
     from repro_torch.kernels import build
     from repro_torch.kernels.soap_rotate.kernel import adam_moments
+    from repro_torch.kernels.sophia_update.kernel import sophia_update
+
+    def one(source):
+        t0 = time.perf_counter()
+        path, compiler_log = build.build(source)
+        return path, compiler_log, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path, compiler_log = build.build("matmul_fused.cu")
-    nvcc_s = time.perf_counter() - t0
-    log(f"built {os.path.relpath(path, HERE)} with nvcc in {nvcc_s:.2f} s")
-    for line in compiler_log.splitlines():
-        if "ptxas" in line:
-            log("  " + line.strip())
-    t0 = time.perf_counter()
-    x = torch.ones(8, device=dev)
-    adam_moments(x, x, x)
-    torch.cuda.synchronize()
-    log(f"compiled adam_moments with Triton in "
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        built = list(pool.map(one, CUDA_SOURCES))
+    log(f"built {len(built)} CUDA sources in parallel in "
         f"{time.perf_counter() - t0:.2f} s")
+    for path, compiler_log, secs in built:
+        log(f"  {os.path.relpath(path, HERE)} with nvcc in {secs:.2f} s")
+        for line in compiler_log.splitlines():
+            if "ptxas" in line:
+                log("    " + line.strip())
+    for name, kernel in (("adam_moments", adam_moments),
+                         ("sophia_update", sophia_update)):
+        t0 = time.perf_counter()
+        x = torch.ones(8, device=dev)
+        kernel(x, x, x)
+        torch.cuda.synchronize()
+        log(f"compiled {name} with Triton in "
+            f"{time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------------------------------ kernel checks
@@ -231,6 +265,117 @@ def check_soap_rotated_update(leaves):
         "(bound 1e-4 rel), two- and one-sided")
 
 
+def model_leaf_shapes():
+    """(ViT-Tiny leaf shapes, CNN leaf shapes): the per-client shapes of
+    every leaf the Sophia paths update and encode."""
+    from repro_torch.models.vision import init_cnn, init_vit
+    from repro_torch.utils.tree import tree_leaves
+    gen = torch.Generator().manual_seed(0)
+    vit, _ = init_vit(gen, image_size=32, n_classes=100, device="cpu",
+                      **VIT_TINY)
+    cnn = init_cnn(gen, n_classes=8, width=8, blocks=2, device="cpu")
+    return ([tuple(p.shape) for p in tree_leaves(vit)],
+            [tuple(p.shape) for p in tree_leaves(cnn)])
+
+
+def sophia_inputs(shape, dev, gen):
+    """g, m normal; h with h = 0 on a third of the entries (the clip
+    saturates on the sign of m') and small h on others."""
+    g = torch.randn(shape, generator=gen, device=dev)
+    m = torch.randn(shape, generator=gen, device=dev)
+    h = torch.rand(shape, generator=gen, device=dev) * 50
+    h.view(-1)[::3] = 0.0
+    h.view(-1)[1::7] = 1e-3
+    return g, m, h
+
+
+def check_sophia_update(stacked_shapes, dev, gen):
+    """Kernel vs plain on every leaf: d and m' within 1e-6 max(1, |x|)
+    (the same f32 expression; the kernel contracts no FMA)."""
+    from repro_torch.kernels.sophia_update.kernel import (
+        sophia_update, sophia_update_plain,
+    )
+    worst, saturated = 0.0, 0
+    for shape in stacked_shapes:
+        g, m, h = sophia_inputs(shape, dev, gen)
+        got = sophia_update(g, m, h)
+        want = sophia_update_plain(g, m, h)
+        saturated += int((want[0].abs() == 0.05).sum())
+        for name, gv, wv in zip(("d", "m"), got, want):
+            err = (gv - wv).abs()
+            worst = max(worst, float(err.max()))
+            if bool((err > 1e-6 * wv.abs().clamp(min=1.0)).any()):
+                raise AssertionError(f"sophia_update {name} at {shape}: "
+                                     f"max err {float(err.max()):.3e}")
+    log(f"sophia_update vs plain on {len(stacked_shapes)} leaves: max |err| "
+        f"{worst:.3e} (bound 1e-6 max(1,|x|)); {saturated} clipped entries")
+    return worst
+
+
+def tied_rows(rows, n, dev, gen, block=128):
+    """(rows, n) with exact k + 0.5 ties in the first block (scale 1/8),
+    an all-zero second block where n allows, and a ragged tail whenever
+    n % block != 0."""
+    x = torch.randn((rows, n), generator=gen, device=dev) * 3
+    b0 = min(block, n)
+    k = torch.randint(-126, 126, (rows, b0), generator=gen, device=dev)
+    x[:, :b0] = (k + 0.5) * 0.125
+    x[:, 0] = 127 * 0.125
+    if n > 2 * block:
+        x[:, block:2 * block] = 0.0
+    return x
+
+
+def check_quantize(stacked_shapes, dev, gen):
+    """Kernel vs plain on every leaf (rows = clients): q and scale
+    bitwise equal."""
+    from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
+    ragged = 0
+    for shape in stacked_shapes:
+        rows, n = shape[0], math.prod(shape[1:])
+        ragged += n % 128 != 0
+        x = tied_rows(rows, n, dev, gen)
+        q, s = quantize(x)
+        wq, ws = quantize_plain(x)
+        if not (torch.equal(q, wq) and torch.equal(s, ws)):
+            bad = int((q != wq).sum()) + int((s != ws).sum())
+            raise AssertionError(f"quantize at {shape}: {bad} values differ "
+                                 "from the plain version")
+    log(f"quantize vs plain on {len(stacked_shapes)} leaves: q and scale "
+        f"bitwise equal ({ragged} leaves with a ragged tail, ties and zero "
+        "blocks in each)")
+    return 0.0
+
+
+def check_dequant_accumulate(stacked_shapes, dev, gen):
+    """Kernel vs plain on every leaf: within 4 B u sum_i |w_i s_i q_i|."""
+    from repro_torch.kernels.fused_agg.kernel import (
+        dequant_accumulate, dequant_accumulate_plain,
+    )
+    from repro_torch.kernels.qblock.kernel import quantize
+    worst, worst_ratio = 0.0, 0.0
+    for shape in stacked_shapes:
+        b, n = shape[0], math.prod(shape[1:])
+        q, s = quantize(torch.randn((b, n), generator=gen, device=dev))
+        w = torch.rand(b, generator=gen, device=dev) + 0.2
+        got = dequant_accumulate(q, s, w)
+        want = dequant_accumulate_plain(q, s, w)
+        mag = ((w[:, None] * s).repeat_interleave(128, dim=1)[:, :n].abs()
+               * q.float().abs()).sum(0)
+        err = (got - want).abs()
+        ratio = float((err / (4 * b * U * mag + 1e-30)).max())
+        worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio,
+                                                               ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"dequant_accumulate at {shape}: max err "
+                                 f"{float(err.max()):.3e}, err/bound "
+                                 f"{ratio:.3f}")
+    log(f"dequant_accumulate vs plain on {len(stacked_shapes)} leaves: max "
+        f"|err| {worst:.3e}, max err/bound {worst_ratio:.3f} (bound 4Bu "
+        "sum|w s q|)")
+    return worst
+
+
 # ----------------------------------------------------------------- timing
 
 def time_kernels(dev, gen):
@@ -316,6 +461,69 @@ def time_kernels(dev, gen):
     return out
 
 
+def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
+    """The Sophia and qblock kernels' work on ViT-Tiny at S=5 (all 127
+    leaves): ``sophia_update`` for one local step, ``quantize`` and
+    ``dequant_accumulate`` for one upload channel of one round.  Timed
+    as ``time_kernels`` times the SOAP kernels.  No single PyTorch call
+    computes any of the three functions, so there is no library time."""
+    from repro_torch.kernels.fused_agg.kernel import (
+        dequant_accumulate, dequant_accumulate_plain,
+    )
+    from repro_torch.kernels.qblock.kernel import (
+        n_blocks, quantize, quantize_plain,
+    )
+    from repro_torch.kernels.sophia_update.kernel import (
+        sophia_update, sophia_update_plain,
+    )
+    shapes = [(S_VIT, *shp) for shp in vit_shapes]
+    soph = [sophia_inputs(shp, dev, gen) for shp in shapes]
+    rows = [torch.randn((S_VIT, math.prod(shp)), generator=gen, device=dev)
+            * 1e-3 for shp in vit_shapes]
+    coded = [quantize(x) for x in rows]
+    w = torch.ones(S_VIT, device=dev)
+    elems = sum(x.numel() for x in rows)
+    scales = sum(S_VIT * n_blocks(x.shape[1], 128) for x in rows)
+    n_out = elems // S_VIT
+    work = {
+        "sophia_update": dict(
+            fns=[lambda f=f: [f(*x) for x in soph]
+                 for f in (sophia_update, sophia_update_plain)],
+            bytes=20 * elems, flops=6 * elems,
+            what=f"one local step, {len(soph)} launches, "
+                 f"{elems / 1e6:.2f} M elements"),
+        "quantize": dict(
+            fns=[lambda f=f: [f(x) for x in rows]
+                 for f in (quantize, quantize_plain)],
+            bytes=4 * elems + elems + 4 * scales, flops=5 * elems,
+            what=f"one channel of one round, {len(rows)} launches, "
+                 f"{elems / 1e6:.2f} M elements"),
+        "dequant_accumulate": dict(
+            fns=[lambda f=f: [f(q, s, w) for q, s in coded]
+                 for f in (dequant_accumulate, dequant_accumulate_plain)],
+            bytes=elems + 4 * scales + 4 * S_VIT + 4 * n_out,
+            flops=2 * elems + scales,
+            what=f"one channel of one round, {len(coded)} launches, "
+                 f"{elems / 1e6:.2f} M int8 values from {S_VIT} clients"),
+    }
+    out = {}
+    for name, x in work.items():
+        t = [timed(fn) for fn in x["fns"]]
+        d = [device_ms(fn) for fn in x["fns"]]
+        by_bytes = x["bytes"] / HBM_BYTES_PER_S
+        by_ops = x["flops"] / FP32_FLOPS
+        bound = max(by_bytes, by_ops) * 1e3
+        by = "bytes" if by_bytes >= by_ops else "operations"
+        out[name] = dict(
+            ms=t[0], plain_ms=t[1], library_ms=None, bound_ms=bound,
+            bound_by=by, device_ms=d[0], plain_device_ms=d[1],
+            library_device_ms=None)
+        log(f"{name}, {x['what']} ({x['bytes'] / 1e6:.1f} MB): kernel "
+            f"{t[0]:.3f} ms, plain {t[1]:.3f} ms; device time {d[0]:.3f} / "
+            f"{d[1]:.3f} ms; bound {bound:.3f} ms ({by})")
+    return out
+
+
 # -------------------------------------------------------------- main path
 
 def vit_tiny_spec():
@@ -327,10 +535,24 @@ def vit_tiny_spec():
         model_kwargs=VIT_TINY)
 
 
-def run_experiment(label, exp):
+def kernel_wrappers():
+    from repro_torch.kernels.fused_agg.kernel import dequant_accumulate
     from repro_torch.kernels.ns_ortho.kernel import matmul_fused
+    from repro_torch.kernels.qblock.kernel import quantize
     from repro_torch.kernels.soap_rotate.kernel import adam_moments
-    before = (matmul_fused.launches, adam_moments.launches)
+    from repro_torch.kernels.sophia_update.kernel import sophia_update
+    return {"adam_moments": adam_moments, "matmul_fused": matmul_fused,
+            "sophia_update": sophia_update, "quantize": quantize,
+            "dequant_accumulate": dequant_accumulate}
+
+
+def run_experiment(label, exp, expect=()):
+    """Drive ``exp`` for its rounds with every launch counter set to 0
+    just before and read just after; fails if a kernel of ``expect`` was
+    never launched.  Returns (history, launches)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     for _ in range(exp.fed.rounds):
         t0 = time.perf_counter()
         rec = exp.run_round()   # ends in host reads of the metrics
@@ -340,60 +562,125 @@ def run_experiment(label, exp):
         for k in ("loss", "test_loss", "drift", "norm_drift"):
             if not math.isfinite(rec[k]):
                 raise AssertionError(f"{label}: non-finite {k} {rec[k]}")
-    launches = (matmul_fused.launches - before[0],
-                adam_moments.launches - before[1])
-    log(f"{label}: matmul_fused launches {launches[0]}, adam_moments "
-        f"launches {launches[1]}")
-    return exp.history
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"{label}: launches " + json.dumps(launches))
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} was never launched")
+    return exp.history, launches
 
 
-def compare_histories(want, got):
+def compare_histories(label, want, got, tol, rel_tol):
     for r, (w, g) in enumerate(zip(want, got)):
-        for k, tol in CNN_TOL.items():
-            if abs(w[k] - g[k]) > tol:
-                raise AssertionError(f"CNN GPU vs CPU round {r + 1} {k}: "
-                                     f"{g[k]} vs {w[k]} (tol {tol})")
-        for k, tol in CNN_REL_TOL.items():
-            if abs(w[k] - g[k]) > tol * abs(w[k]):
-                raise AssertionError(f"CNN GPU vs CPU round {r + 1} {k}: "
-                                     f"{g[k]} vs {w[k]} (rel tol {tol})")
+        for k, t in tol.items():
+            if abs(w[k] - g[k]) > t:
+                raise AssertionError(f"{label} GPU vs CPU round {r + 1} {k}: "
+                                     f"{g[k]} vs {w[k]} (tol {t})")
+        for k, t in rel_tol.items():
+            if abs(w[k] - g[k]) > t * abs(w[k]):
+                raise AssertionError(f"{label} GPU vs CPU round {r + 1} {k}: "
+                                     f"{g[k]} vs {w[k]} (rel tol {t})")
+    log(f"{label}: GPU history agrees with the CPU plain path")
 
 
-def main_path():
-    """Returns the launch counts of the main path's run."""
+def with_host_probes(exp):
+    """Rebuild ``exp``'s round with Hutchinson probes drawn on the host
+    from the round's seed and step, then moved to the run's device, so a
+    GPU run and a CPU run of the same seed use the same probes (a CUDA
+    and a CPU generator give different bits)."""
+    from repro_torch.core.algorithms import build_round_fn
+    from repro_torch.core.client import rademacher_like
+    from repro_torch.utils.tree import tree_map
+    s = max(1, int(round(exp.fed.n_clients * exp.fed.participation)))
+    like = tree_map(lambda p: torch.empty((s, *p.shape)), exp.server.params)
+
+    def probe_fn(seed, k):
+        gen = torch.Generator().manual_seed(seed * 1000 + k)
+        return tree_map(lambda u: u.to(exp.device), rademacher_like(like,
+                                                                    gen))
+
+    exp.round_fn = build_round_fn(
+        exp.spec, exp.loss_fn, exp.opt, lr=exp.lr,
+        local_steps=exp.fed.local_steps,
+        beta=exp.spec.resolve_beta(exp.fed.beta),
+        hessian_freq=exp.fed.hessian_freq, server_lr=exp.fed.server_lr,
+        transport=exp.transport, executor=exp.fed.executor_config(),
+        n_clients=exp.fed.n_clients, probe_fn=probe_fn)
+    return exp
+
+
+def check_qblock_bytes(label, exp, hist, shapes):
+    """The wire carries n int8 + ceil(n/128) f32 scales per leaf on each
+    of the two channels (Theta = {h} has the params' shapes)."""
+    want = 2 * sum(math.prod(s) + 4 * -(-math.prod(s) // 128)
+                   for s in shapes)
+    got = {hist[-1]["upload_bytes"], exp.comm_bytes_per_round()}
+    if got != {want}:
+        raise AssertionError(f"{label}: upload bytes {got}, want {want}")
+    log(f"{label}: {want} upload bytes per client per round (int8 + "
+        "scales on both channels)")
+
+
+def main_paths(vit_shapes, cnn_shapes):
+    """Drives every path; returns each kernel's launches summed over the
+    paths that ran it (each counted from 0)."""
     from repro_torch.api import build_experiment, materialize
     from repro_torch.convert import params_from_numpy, params_to_numpy
-    from repro_torch.kernels.ns_ortho.kernel import matmul_fused
-    from repro_torch.kernels.soap_rotate.kernel import adam_moments
 
     spec = vit_tiny_spec()
     vit = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
     cnn = materialize("cifar_like_cnn", seed=0, device="cuda")
     cpu_params = params_from_numpy(params_to_numpy(cnn.params), "cpu")
+    cnn_cpu = dataclasses.replace(
+        materialize("cifar_like_cnn", seed=0, device="cpu"),
+        params=cpu_params)
+    soap_k = ("matmul_fused", "adam_moments")
+    wire_k = ("sophia_update", "quantize", "dequant_accumulate")
+    total = dict.fromkeys(kernel_wrappers(), 0)
 
-    matmul_fused.launches = 0
-    adam_moments.launches = 0
+    def drive(label, exp, expect):
+        hist, launches = run_experiment(label, exp, expect)
+        for name, n in launches.items():
+            total[name] += n
+        return hist
+
+    # SOAP
     for algo in ("local_soap", "fedpac_soap"):
-        run_experiment(f"vit_tiny {algo}", build_experiment(
-            algo, scenario=vit, participation=0.5, rounds=ROUNDS))
-    cnn_gpu = run_experiment("cifar_like_cnn fedpac_soap", build_experiment(
+        drive(f"vit_tiny {algo}", build_experiment(
+            algo, scenario=vit, participation=0.5, rounds=ROUNDS), soap_k)
+    cnn_gpu = drive("cifar_like_cnn fedpac_soap", build_experiment(
         "fedpac_soap", scenario=cnn, rounds=ROUNDS,
-        opt_kwargs={"eps": CNN_EPS}))
-    launches = {"matmul_fused": matmul_fused.launches,
-                "adam_moments": adam_moments.launches}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+        opt_kwargs={"eps": CNN_EPS}), soap_k)
+    ref, _ = run_experiment(
+        "cifar_like_cnn fedpac_soap (cpu reference)", build_experiment(
+            "fedpac_soap", scenario=cnn_cpu, rounds=ROUNDS, device="cpu",
+            opt_kwargs={"eps": CNN_EPS}))
+    compare_histories("cifar_like_cnn fedpac_soap", ref, cnn_gpu, CNN_TOL,
+                      CNN_REL_TOL)
 
-    cnn_cpu = materialize("cifar_like_cnn", seed=0, device="cpu")
-    cnn_cpu = dataclasses.replace(cnn_cpu, params=cpu_params)
-    ref = run_experiment("cifar_like_cnn fedpac_soap (cpu reference)",
-                         build_experiment("fedpac_soap", scenario=cnn_cpu,
-                                          rounds=ROUNDS, device="cpu",
-                                          opt_kwargs={"eps": CNN_EPS}))
-    compare_histories(ref, cnn_gpu)
-    log("cifar_like_cnn GPU history agrees with the CPU plain path")
-    return launches
+    # Sophia, dense and on the qblock wire with error feedback
+    sophia_kw = dict(participation=0.5, rounds=ROUNDS, lr=SOPHIA_LR,
+                     hessian_freq=10)
+    for algo in ("local_sophia", "fedpac_sophia"):
+        drive(f"vit_tiny {algo}", build_experiment(
+            algo, scenario=vit, **sophia_kw), ("sophia_update",))
+    label = "vit_tiny fedpac_sophia qblock+ef"
+    exp = build_experiment("fedpac_sophia", scenario=vit, **sophia_kw,
+                           **QBLOCK)
+    hist = drive(label, exp, wire_k)
+    check_qblock_bytes(label, exp, hist, vit_shapes)
+
+    label = "cifar_like_cnn fedpac_sophia qblock+ef"
+    cnn_kw = dict(rounds=ROUNDS, lr=SOPHIA_LR, hessian_freq=10, **QBLOCK)
+    exp = with_host_probes(build_experiment("fedpac_sophia", scenario=cnn,
+                                            **cnn_kw))
+    cnn_gpu = drive(label, exp, wire_k)
+    check_qblock_bytes(label, exp, cnn_gpu, cnn_shapes)
+    ref, _ = run_experiment(f"{label} (cpu reference)", with_host_probes(
+        build_experiment("fedpac_sophia", scenario=cnn_cpu, device="cpu",
+                         **cnn_kw)))
+    compare_histories(label, ref, cnn_gpu, SOPHIA_TOL, SOPHIA_REL_TOL)
+    return total
 
 
 def main():
@@ -422,21 +709,39 @@ def main():
             "adam_moments": check_adam_moments(leaves)}
     check_soap_rotated_update(leaves)
     del leaves
+    vit_shapes, cnn_shapes = model_leaf_shapes()
+    stacked = ([(S_VIT, *s) for s in vit_shapes]
+               + [(2, *s) for s in cnn_shapes])
+    errs["sophia_update"] = check_sophia_update(stacked, dev, gen)
+    errs["quantize"] = check_quantize(stacked, dev, gen)
+    errs["dequant_accumulate"] = check_dequant_accumulate(stacked, dev, gen)
     timings = time_kernels(dev, gen)
-    launches = main_path()
+    timings.update(time_sophia_and_wire_kernels(vit_shapes, dev, gen))
+    launches = main_paths(vit_shapes, cnn_shapes)
 
     meta = {
-        "matmul_fused": dict(
-            route="cuda", source="src/repro_torch/kernels/csrc/matmul_fused.cu",
-            replaces="src/repro/kernels/ns_ortho/kernel.py:61"),
         "adam_moments": dict(
             route="triton",
             source="src/repro_torch/kernels/soap_rotate/kernel.py",
             replaces="src/repro/kernels/soap_rotate/kernel.py:34"),
+        "matmul_fused": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/matmul_fused.cu",
+            replaces="src/repro/kernels/ns_ortho/kernel.py:61"),
+        "sophia_update": dict(
+            route="triton",
+            source="src/repro_torch/kernels/sophia_update/kernel.py",
+            replaces="src/repro/kernels/sophia_update/kernel.py:31"),
+        "quantize": dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/qblock.cu",
+            replaces="src/repro/kernels/qblock/kernel.py:33"),
+        "dequant_accumulate": dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/fused_agg.cu",
+            replaces="src/repro/kernels/fused_agg/kernel.py:39"),
     }
     kernels = [dict(name=name, **meta[name], launches=launches[name],
                     max_abs_err=errs[name], **timings[name])
-               for name in ("adam_moments", "matmul_fused")]
+               for name in meta]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

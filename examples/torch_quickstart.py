@@ -1,9 +1,11 @@
-"""Quickstart for the PyTorch/H100 port: Local SOAP against FedPAC_SOAP.
+"""Quickstart for the PyTorch/H100 port: Local SOAP against FedPAC_SOAP,
+and FedPAC_Sophia on the int8 (qblock) wire.
 
 Federated CIFAR-like classification on non-IID clients (the registered
 ``cifar_like_cnn`` scenario: Dirichlet(0.1) label skew, 10 clients), run
-through ``repro_torch`` — SOAP's rotated Adam step on the hand-written
-Hopper kernels.  Runs on the GPU by default:
+through ``repro_torch`` — SOAP's rotated Adam step, Sophia's clipped
+diagonal step and the int8 wire's quantize / dequantize-accumulate on the
+hand-written Hopper kernels.  Runs on the GPU by default:
 
   python examples/torch_quickstart.py               # CUDA (raises without)
   QUICKSTART_DEVICE=cpu python examples/torch_quickstart.py   # plain path
@@ -30,12 +32,20 @@ scenario = materialize(
     dataclasses.replace(spec, source_kwargs=dict(spec.source_kwargs, n=N)),
     device=DEVICE)
 
-for algo in ["local_soap", "fedpac_soap"]:
+ARMS = [
+    ("local_soap", "local_soap", {}),
+    ("fedpac_soap", "fedpac_soap", {}),
+    # the repo's vision Sophia lr; int8 uploads with error feedback
+    ("fedpac_sophia+qblock", "fedpac_sophia",
+     dict(lr=2e-2, delta_codec="qblock", theta_codec="qblock")),
+]
+
+for label, algo, kw in ARMS:
     exp = build_experiment(algo, scenario=scenario, participation=0.5,
                            rounds=ROUNDS, local_steps=5, beta=0.5,
-                           device=DEVICE)
+                           device=DEVICE, **kw)
     hist = exp.run()
-    print(f"{algo:14s} acc={hist[-1]['test_acc']:.3f} "
+    print(f"{label:20s} acc={hist[-1]['test_acc']:.3f} "
           f"loss={hist[-1]['loss']:.3f} drift={hist[-1]['drift']:.2e} "
           f"comm={exp.comm_bytes_per_round() / 1e6:.2f} MB/round "
           f"(label_tv={exp.scenario.partition_stats['label_tv']:.2f})")

@@ -9,17 +9,20 @@ optimizer, alignment/correction policy, beta policy and upload codecs.
     round_fn(server, client_state, cohort, batches, seed)
         -> (server, client_state, metrics)
 
-on the fused dense path: the cohort's local rounds, dense wire encode, and
-the wire-native server flush (``engine.aggregate_wire``).  Ported so far:
-the SOAP builtins (``local_soap``, ``fedpac_soap``, ``align_only_soap``,
-``correct_only_soap``).  Per-client state (SCAFFOLD, error feedback),
-mixing hooks (FedPM) and telemetry are not ported yet; ``telemetry=True``
-is accepted and ignored.
+on the fused wire path: the cohort's local rounds, the wire encode (with
+error feedback for a lossy delta codec), and the wire-native server flush
+(``engine.aggregate_wire``).  Ported so far: the SOAP and Sophia builtins
+(``local_*``, ``fedpac_*``, ``align_only_*``, ``correct_only_*``), the
+dense and qblock codecs, and error-feedback residuals as per-client state
+(``ClientStateSpec``, without the population store's export/import
+hooks).  Algorithm state (SCAFFOLD), mixing hooks (FedPM) and telemetry
+are not ported yet; ``telemetry=True`` is accepted and ignored.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+import functools
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -41,6 +44,23 @@ class UnknownAlgorithmError(ValueError):
 
 class DuplicateAlgorithmError(ValueError):
     """``register`` called twice for the same name without overwrite."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientStateSpec:
+    """Per-client persistent-state protocol (the reference's, without the
+    population store's export/import hooks).  State is stacked with a
+    leading (N,) client axis.
+
+      init(params, n_clients)                     -> stacked state tree
+      client_view(state, cohort)                  -> the cohort's rows
+      server_update(state, cohort, outs, n)       -> new state
+
+    ``outs`` is the cohort-stacked state output of the local round.
+    """
+    init: Callable[[Any, int], Any]
+    client_view: Callable[[Any, Any], Any]
+    server_update: Callable[[Any, Any, Any, int], Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +94,20 @@ class AlgorithmSpec:
     def make_optimizer(self, **opt_kwargs) -> LocalOptimizer:
         return optim.make(self.optimizer, **opt_kwargs)
 
-    def make_transport(self) -> T.Transport:
-        """This spec's wire policy: one codec per upload channel."""
-        return T.Transport(delta=T.resolve_codec(self.delta_upload),
-                           theta=T.resolve_codec(self.upload))
+    def make_transport(self, *, block: int = 128, delta_codec=None,
+                       theta_codec=None, error_feedback: bool = True
+                       ) -> T.Transport:
+        """This spec's wire policy: one codec per upload channel
+        (``delta_codec``/``theta_codec`` override the spec's declared
+        codec specs, e.g. from FedConfig)."""
+        cfg = T.TransportConfig(block=block)
+        return T.Transport(
+            delta=T.resolve_codec(
+                self.delta_upload if delta_codec is None else delta_codec,
+                cfg),
+            theta=T.resolve_codec(
+                self.upload if theta_codec is None else theta_codec, cfg),
+            error_feedback=error_feedback)
 
 
 # ----------------------------------------------------------------- registry
@@ -126,20 +156,54 @@ def zero_theta(opt: LocalOptimizer, params):
     return tree_map(torch.zeros_like, opt.get_precond(opt.init(params)))
 
 
+# error-feedback residuals, declared through the per-client state
+# protocol: the round gathers the cohort's residuals and scatters the
+# refreshed ones back
+EF_STATE = ClientStateSpec(init=T.ef_init, client_view=T.ef_view,
+                           server_update=lambda s, cohort, outs, n:
+                           T.ef_scatter(s, cohort, outs))
+
+
+def round_client_state_spec(spec: AlgorithmSpec,
+                            transport: Optional[T.Transport] = None
+                            ) -> Optional[ClientStateSpec]:
+    """The per-client state protocol of one run: the transport's
+    error-feedback residuals (lossy delta codec only) or None.  (Declared
+    algorithm state, SCAFFOLD's, is not ported.)"""
+    del spec
+    if transport is not None and transport.feedback_active:
+        return EF_STATE
+    return None
+
+
+def init_round_client_state(spec: AlgorithmSpec, transport, params,
+                            n_clients: int):
+    """Fresh state matching ``round_client_state_spec`` (None if stateless)."""
+    proto = round_client_state_spec(spec, transport)
+    return proto.init(params, n_clients) if proto is not None else None
+
+
 def make_wire_client_step(spec: AlgorithmSpec, loss_fn: Callable,
                           opt: LocalOptimizer, run: LocalRunConfig,
                           transport: T.Transport, cohort_exec: Callable):
     """The cohort's round, from server state to wire messages:
-    ``cohort_step(params, theta, g_global, beta, batches) -> (dmsg, tmsg,
-    loss)``.  ``tmsg`` is the encoded stacked Theta for aligned algorithms,
-    the dense stacked Theta tree otherwise."""
-    def cohort_step(params, theta, g_global, beta, batches):
+    ``cohort_step(params, theta, g_global, beta, batches, residual, *,
+    seed, probe_fn) -> (dmsg, tmsg, new_residual, loss)``.
+
+    ``residual`` is the cohort's stacked error-feedback rows (None when
+    feedback is off): it is added to the delta before encode, and the
+    refreshed residual comes back for the scatter.  ``tmsg`` is the
+    encoded stacked Theta for aligned algorithms, the dense stacked Theta
+    tree otherwise."""
+    def cohort_step(params, theta, g_global, beta, batches, residual=None,
+                    *, seed=0, probe_fn=None):
         delta, theta_out, loss = client_round(
             loss_fn, opt, run, params, theta, g_global, batches, cohort_exec,
-            beta=beta)
-        dmsg = transport.delta.encode(delta)
+            beta=beta, seed=seed, probe_fn=probe_fn)
+        dmsg, _, new_residual = T.encode_with_feedback(transport.delta,
+                                                       delta, residual)
         tmsg = transport.theta.encode(theta_out) if spec.align else theta_out
-        return dmsg, tmsg, loss
+        return dmsg, tmsg, new_residual, loss
 
     return cohort_step
 
@@ -153,36 +217,55 @@ def build_round_fn(
     local_steps: int,
     transport: T.Transport,
     beta: Union[float, str] = 0.5,
+    hessian_freq: int = 10,
     server_lr: float = 1.0,
     executor: Optional[ExecutorConfig] = None,
+    n_clients: Optional[int] = None,
     telemetry: bool = False,
+    probe_fn: Optional[Callable] = None,
 ):
-    """The one round implementation (fused dense wire path).
+    """The one round implementation (fused wire path).
 
     Returns ``driver(server, client_state, cohort, batches, seed) ->
     (server, client_state, metrics)``; batches carry leading (S, K, ...)
-    axes.  ``seed`` is the round's random draw (kept so the caller's
-    generator advances as the reference's does; SOAP draws nothing).
-    ``telemetry`` is accepted and ignored until ``obs`` is ported.
+    axes and ``cohort`` holds the (S,) client ids, by which the
+    error-feedback rows of ``client_state`` are gathered and scattered
+    (``n_clients`` sizes that state and is required when it exists).
+    ``seed`` is the round's random draw: it seeds Sophia's Hutchinson
+    probes, where the reference splits its round key.
+    ``probe_fn(seed, k) -> stacked probe tree`` replaces those probes (the
+    parity tests inject the reference's).  ``telemetry`` is accepted and
+    ignored until ``obs`` is ported.
     """
     del telemetry
-    run = LocalRunConfig(lr=lr, local_steps=local_steps, align=spec.align)
+    state_proto = round_client_state_spec(spec, transport)
+    if state_proto is not None and n_clients is None:
+        raise ValueError(
+            f"algorithm {spec.name!r} carries per-client state "
+            "(error-feedback residuals); build_round_fn needs n_clients")
+    run = LocalRunConfig(lr=lr, local_steps=local_steps,
+                         hessian_freq=hessian_freq, align=spec.align)
     agg_cfg = AggregationConfig(lr=lr, local_steps=local_steps,
                                 server_lr=server_lr, align=spec.align)
     cohort_step = make_wire_client_step(
         spec, loss_fn, opt, run, transport, make_cohort_executor(executor))
 
     def driver(server: ServerState, cstate, cohort, batches, seed):
-        del seed
+        dev = tree_leaves(server.params)[0].device
         ctrl = server.geom if server.geom is not None else make_controller(
-            beta, correct=spec.correct,
-            device=tree_leaves(server.params)[0].device)
+            beta, correct=spec.correct, device=dev)
         theta = server.theta
         if spec.align and theta is None:
             theta = zero_theta(opt, server.params)
         s = len(cohort)
-        dmsgs, tmsgs, loss = cohort_step(server.params, theta,
-                                         server.g_global, ctrl.beta, batches)
+        ids = torch.as_tensor(cohort, dtype=torch.long, device=dev)
+        residual = (state_proto.client_view(cstate, ids)
+                    if state_proto is not None else None)
+        round_probes = (None if probe_fn is None else
+                        functools.partial(probe_fn, seed))
+        dmsgs, tmsgs, new_residual, loss = cohort_step(
+            server.params, theta, server.g_global, ctrl.beta, batches,
+            residual, seed=seed, probe_fn=round_probes)
         # exact host-side byte counts from the wire structures
         total = T.wire_bytes(dmsgs)
         if spec.align:
@@ -192,6 +275,9 @@ def build_round_fn(
             server.params, theta, server.g_global, dmsgs, weights, agg_cfg,
             transport, tmsgs=tmsgs if spec.align else None,
             thetas=None if spec.align else tmsgs)
+        if state_proto is not None:
+            cstate = state_proto.server_update(cstate, ids, new_residual,
+                                               n_clients)
         new_ctrl = update_controller(ctrl, agg["norm_drift"],
                                      agg["freshness"])
         metrics = dict(agg, loss=loss, beta=ctrl.beta,

@@ -94,9 +94,12 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
     Theta uploads arrive as stacked wire messages (``tmsgs``, aligned
     algorithms) or as an already-dense stacked tree (``thetas``); neither
     for first-order cohorts.  Lossless theta codecs decode (free for
-    dense) and take the exact classic drift path.  Returns (new_params,
-    new_theta, new_g, metrics, aux) with ``aux["step"]`` the weighted
-    delta mean and ``aux["thetas"]`` the decoded stack.
+    dense) and take the exact classic drift path; lossy codecs (qblock)
+    compute drift wire-natively from per-client squared norms
+    (``Codec.sq_norms``) and the accumulated mean, never decoding the
+    stack.  Returns (new_params, new_theta, new_g, metrics, aux) with
+    ``aux["step"]`` the weighted delta mean and ``aux["thetas"]`` the
+    decoded stack (None on the lossy path).
     """
     if tmsgs is not None and thetas is not None:
         raise ValueError("pass theta uploads as tmsgs (wire) or thetas "
@@ -105,13 +108,21 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
     b = w.shape[0]
     delta_wsum = transport.delta.accumulate(dmsgs, w)
 
-    if tmsgs is not None:
-        if not transport.theta.lossless:
-            raise NotImplementedError(
-                "lossy theta codecs (wire-native drift) are not ported")
-        thetas = transport.theta.decode(tmsgs)
-    theta_stats = (None if thetas is None else
-                   (drift_metric(thetas), client_weighted_sum(thetas, w)))
+    if tmsgs is not None and not transport.theta.lossless:
+        # wire-native drift: Def. 1 decomposed as
+        # mean_i ||Theta_i||^2 - ||mean_i Theta_i||^2, clamped at 0
+        sq = transport.theta.sq_norms(tmsgs)
+        usum = transport.theta.accumulate(
+            tmsgs, torch.ones((b,), dtype=torch.float32, device=w.device))
+        ubar_sq = tree_norm_sq(tree_map(lambda x: x / b, usum))
+        drift = torch.clamp(torch.mean(sq) - ubar_sq, min=0.0)
+        theta_stats = (drift, transport.theta.accumulate(tmsgs, w))
+    else:
+        if tmsgs is not None:
+            thetas = transport.theta.decode(tmsgs)
+        theta_stats = (None if thetas is None else
+                       (drift_metric(thetas),
+                        client_weighted_sum(thetas, w)))
     out = _finish_update(params, theta, g_global, delta_wsum, w, cfg,
                          theta_stats)
     step = tree_map(lambda x: x / b, delta_wsum)

@@ -20,4 +20,4 @@ class Dense(Codec):
         return msg.parts["x"]
 
 
-register_codec("dense")(Dense)
+register_codec("dense")(lambda cfg: Dense())

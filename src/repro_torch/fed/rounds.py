@@ -1,13 +1,18 @@
 """Synchronous federated runtime: client sampling, batch staging, round
-loop — counterpart of ``repro/fed/rounds.py`` on the legacy dense path.
+loop — counterpart of ``repro/fed/rounds.py`` on the legacy (dense-id)
+path.
 
 ``FedConfig()`` defaults select the paper's main path: ``fedpac_soap``,
 the sync runtime, the ``vmap`` executor and the dense transport, on the
 GPU (``device="cuda"``, which raises on a host without one; pass
-``device="cpu"`` for the plain PyTorch path).  The round draws from one
+``device="cpu"`` for the plain PyTorch path).  ``delta_codec`` /
+``theta_codec`` select the upload codecs (``"dense"``, ``"qblock"``);
+with a lossy delta codec and ``error_feedback`` the run carries stacked
+``(N, ...)`` f32 residuals as per-client state.  The round draws from one
 numpy generator in the reference's order — cohort, batches, then one
 integer seed — so the same ``seed`` samples the same cohorts and batches
-as the JAX runtime.  Population, pipeline and async modes are not ported.
+as the JAX runtime; that seed also seeds Sophia's Hutchinson probes.
+Population, pipeline and async modes are not ported.
 """
 from __future__ import annotations
 
@@ -18,10 +23,13 @@ import numpy as np
 
 from repro_torch import optim
 from repro_torch.core import init_server
-from repro_torch.core.algorithms import AlgorithmSpec, build_round_fn, resolve
+from repro_torch.core.algorithms import (
+    AlgorithmSpec, build_round_fn, init_round_client_state, resolve,
+)
 from repro_torch.core.engine import (
     BETA_MAX_AUTO, ExecutorConfig, make_controller,
 )
+from repro_torch.core.transport import Transport, validate_codec_spec
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.staging import stage_cohort_batches
 from repro_torch.utils.hw import resolve_device
@@ -40,10 +48,16 @@ class FedConfig:
     batch_size: int = 16
     lr: Optional[float] = None     # default: paper's per-optimizer lr
     beta: Union[float, str] = 0.5  # FedPAC correction strength (or "auto")
+    hessian_freq: int = 10
     seed: int = 0
     server_lr: float = 1.0
     runtime: str = "sync"
     executor: str = "vmap"
+    # geometry transport: None inherits the spec's declared codec specs
+    theta_codec: Optional[str] = None
+    delta_codec: Optional[str] = None
+    error_feedback: bool = True    # EF residuals for lossy delta codecs
+    qblock_size: int = 128         # qblock codec: elements per scale
     device: str = "cuda"
 
     def __post_init__(self):
@@ -60,13 +74,34 @@ class FedConfig:
         if self.local_steps < 1:
             raise ValueError(
                 f"local_steps must be >= 1, got {self.local_steps}")
+        if self.hessian_freq < 1:
+            raise ValueError(
+                f"hessian_freq must be >= 1, got {self.hessian_freq}")
         if isinstance(self.beta, str) and self.beta != "auto":
             raise ValueError(
                 f"beta must be a float or 'auto', got {self.beta!r}")
-        resolve_device(self.device)
+        for codec_spec in (self.theta_codec, self.delta_codec):
+            if codec_spec is not None:
+                validate_codec_spec(codec_spec)  # UnknownCodecError early
+        if self.qblock_size < 1:
+            raise ValueError(
+                f"qblock_size must be >= 1, got {self.qblock_size}")
+        if resolve_device(self.device).type == "cuda" and \
+                self.qblock_size % 128:
+            raise ValueError(
+                f"qblock_size must be a multiple of 128 on a CUDA device "
+                f"(the quantize and dequant_accumulate kernels' block "
+                f"granularity), got {self.qblock_size}")
 
     def executor_config(self) -> ExecutorConfig:
         return ExecutorConfig(backend=self.executor)
+
+    def make_transport(self, spec: AlgorithmSpec) -> Transport:
+        """Resolve the wire policy for ``spec`` under this config."""
+        return spec.make_transport(
+            block=self.qblock_size, delta_codec=self.delta_codec,
+            theta_codec=self.theta_codec,
+            error_feedback=self.error_feedback)
 
 
 def resolve_lr(fed: FedConfig, spec_or_opt: Union[AlgorithmSpec, str]
@@ -104,17 +139,19 @@ class FederatedExperiment(FedExperiment):
         self.opt = self.spec.make_optimizer(**(opt_kwargs or {}))
         self.lr = resolve_lr(fed, self.spec)
         beta = self.spec.resolve_beta(fed.beta)
-        self.transport = self.spec.make_transport()
+        self.transport = fed.make_transport(self.spec)
         self.round_fn = build_round_fn(
             self.spec, loss_fn, self.opt, lr=self.lr,
-            local_steps=fed.local_steps, beta=beta, server_lr=fed.server_lr,
+            local_steps=fed.local_steps, beta=beta,
+            hessian_freq=fed.hessian_freq, server_lr=fed.server_lr,
             transport=self.transport, executor=fed.executor_config(),
-            telemetry=True)
+            n_clients=fed.n_clients, telemetry=True)
         geom = make_controller(beta, correct=self.spec.correct,
                                beta_max=BETA_MAX_AUTO, device=self.device)
         params = tree_map(lambda p: p.to(self.device), params)
         self.server = init_server(params, geom=geom)
-        self.client_state = None
+        self.client_state = init_round_client_state(
+            self.spec, self.transport, params, fed.n_clients)
 
     def _sample_cohort(self):
         s = max(1, int(round(self.fed.n_clients * self.fed.participation)))
@@ -125,8 +162,8 @@ class FederatedExperiment(FedExperiment):
         batches = stage_cohort_batches(self.client_batch_fn, cohort,
                                        self.fed.local_steps, self.rng,
                                        self.device)
-        # the reference draws a JAX key here; the draw keeps later
-        # cohorts and batches in step with it
+        # the reference draws its round key here: the same integer seeds
+        # this round's Hutchinson probes and keeps later draws in step
         seed = int(self.rng.integers(0, 2**31))
         self.server, self.client_state, metrics = self.round_fn(
             self.server, self.client_state, cohort, batches, seed)

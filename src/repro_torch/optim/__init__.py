@@ -1,13 +1,14 @@
 """Local optimizers implementing the paper's (Theta, P_Theta) abstraction.
 
-Only SOAP is ported so far; sgd, adamw, muon and sophia follow."""
+SOAP and Sophia are ported so far; sgd, adamw and muon follow."""
 from repro_torch.optim.api import (  # noqa: F401
     LocalOptimizer, as_matrix, is_hidden_matrix, matrix_mask,
 )
-from repro_torch.optim import soap
+from repro_torch.optim import soap, sophia
 
 _FACTORIES = {
     "soap": soap.make,
+    "sophia": sophia.make,
 }
 
 
@@ -23,6 +24,7 @@ def available() -> tuple:
     return tuple(sorted(_FACTORIES))
 
 
-DEFAULT_LR = {  # paper's Appendix Table 8 default
+DEFAULT_LR = {  # paper's Appendix Table 8 defaults
+    "sophia": 3e-4,
     "soap": 3e-3,
 }

@@ -4,7 +4,8 @@
 Every optimizer is a ``LocalOptimizer`` of functions over param trees:
 
   init(params, lead=0)                             -> state
-  update(grads, state, params, step, lead=0)      -> (direction, state)
+  update(grads, state, params, step, lead=0, extras=None)
+                                                   -> (direction, state)
   get_precond(state)                               -> Theta
   set_precond(state, theta)                        -> state
 
@@ -12,7 +13,10 @@ Every optimizer is a ``LocalOptimizer`` of functions over param trees:
 per-client shape — 1 for the cohort-stacked ``(S, ...)`` trees the round
 engine steps all clients through at once.  Leaf classification
 (``matrix_mask``) and the matrix view (``as_matrix``) always look at the
-per-client shape, so a stacked HWIO conv is still a conv.
+per-client shape, so a stacked HWIO conv is still a conv.  ``extras``
+carries optional per-step inputs: Sophia's Hutchinson estimate
+(``{"h_est": tree}``) on the steps that refresh it, when
+``needs_hessian`` asks the client loop for one.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ class LocalOptimizer:
     update: Callable[..., Any]
     get_precond: Callable[[Any], Any]
     set_precond: Callable[[Any, Any], Any]
+    # True if the client loop must supply a Hutchinson diag-Hessian estimate
+    needs_hessian: bool = False
 
 
 _NON_MATRIX_TOKENS = ("embed", "tok", "head", "norm", "bias", "scale",

@@ -100,7 +100,9 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
             d = d + weight_decay * p.to(torch.float32)
         return d, new
 
-    def update(grads, state, params, step: int, lead: int = 0):
+    def update(grads, state, params, step: int, lead: int = 0,
+               extras=None):
+        del extras  # SOAP takes no per-step inputs
         mask = matrix_mask(params, lead)
         out = {}
 

@@ -13,7 +13,19 @@ Tolerances:
     contraction aside) and 1e-5 max(1, |n|) on n (a division and a square
     root, each rounded or approximated differently).
   * soap_rotated_update: 1e-4 max(1, |x|), the composition of the above.
+  * sophia_update: 1e-6 max(1, |x|) on d and m' (the same f32 expression,
+    FMA contraction off in the kernel); inputs include h = 0 and
+    clip-saturated entries.
+  * quantize: q and scale bitwise equal (inputs include exact k + 0.5
+    ties, all-zero blocks and ragged tails).
+  * dequant_accumulate: 4 B u sum_i |w_i s_i q_i| per element (B f32
+    products summed in another order).
 """
+import os
+import pathlib
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -23,7 +35,14 @@ from repro_torch.kernels.ns_ortho.kernel import (
 from repro_torch.kernels.soap_rotate.kernel import (
     adam_moments, adam_moments_plain,
 )
+from repro_torch.kernels.fused_agg.kernel import (
+    dequant_accumulate, dequant_accumulate_plain,
+)
+from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
 from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
+from repro_torch.kernels.sophia_update.kernel import (
+    sophia_update, sophia_update_plain,
+)
 
 U = 2.0 ** -24
 
@@ -114,3 +133,89 @@ def test_soap_rotated_update_kernels_match_plain(cuda, sides):
     for gv, wv in zip(got, want):
         err = (gv.cpu() - wv).abs()
         assert bool((err <= 1e-4 * wv.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("shape", [(5, 192, 576), (7,), (5, 65, 192)])
+def test_sophia_update_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(len(shape))
+    g, m = _randn(gen, *shape, dev=cuda), _randn(gen, *shape, dev=cuda)
+    h = torch.rand(shape, generator=gen).to(cuda) * 50
+    h.view(-1)[::3] = 0.0                  # the clip saturates
+    before = sophia_update.launches
+    got = sophia_update(g, m, h, b1=0.9, rho=0.05, eps=1e-12)
+    torch.cuda.synchronize()
+    assert sophia_update.launches == before + 1
+    want = sophia_update_plain(g.cpu(), m.cpu(), h.cpu(), b1=0.9, rho=0.05,
+                               eps=1e-12)
+    for gv, wv in zip(got, want):
+        err = (gv.cpu() - wv).abs()
+        assert bool((err <= 1e-6 * wv.abs().clamp(min=1.0)).all())
+
+
+def _tied(gen, rows, n, block, dev):
+    x = torch.randn((rows, n), generator=gen) * 3
+    k = torch.randint(-126, 126, (rows, min(block, n)), generator=gen)
+    x[:, :min(block, n)] = (k + 0.5) * 0.125       # exact ties at scale 1/8
+    x[:, 0] = 127 * 0.125
+    if n > 2 * block:
+        x[:, block:2 * block] = 0.0                # an all-zero block
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("rows,n", [(5, 110592), (5, 192), (2, 10),
+                                    (3, 1000), (1, 128)])
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_kernel_bitwise_matches_plain(cuda, rows, n, block):
+    gen = torch.Generator().manual_seed(rows * n + block)
+    x = _tied(gen, rows, n, block, cuda)
+    before = quantize.launches
+    q, s = quantize(x, block=block)
+    torch.cuda.synchronize()
+    assert quantize.launches == before + 1
+    wq, ws = quantize_plain(x.cpu(), block=block)
+    assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
+
+
+def test_quantize_kernel_rejects_unaligned_block(cuda):
+    with pytest.raises(ValueError, match="multiples of 128"):
+        quantize(torch.ones(2, 10, device=cuda), block=64)
+
+
+@pytest.mark.parametrize("b,n", [(5, 110592), (5, 192), (2, 10), (3, 1001),
+                                 (10, 4096)])
+def test_dequant_accumulate_kernel_matches_plain(cuda, b, n):
+    gen = torch.Generator().manual_seed(b * n)
+    q, s = quantize_plain(torch.randn((b, n), generator=gen), block=128)
+    w = torch.rand(b, generator=gen) + 0.2
+    before = dequant_accumulate.launches
+    got = dequant_accumulate(q.to(cuda), s.to(cuda), w.to(cuda), block=128)
+    torch.cuda.synchronize()
+    assert dequant_accumulate.launches == before + 1
+    want = dequant_accumulate_plain(q, s, w, block=128)
+    mag = ((w[:, None] * s).repeat_interleave(128, dim=1)[:, :n].abs()
+           * q.float().abs()).sum(0)
+    err = (got.cpu() - want).abs()
+    assert tuple(got.shape) == (n,)
+    assert bool((err <= 4 * b * U * mag + 1e-30).all())
+
+
+def test_port_imports_no_jax(cuda):
+    """Every port module imports on the GPU host without JAX or the JAX
+    package."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    port = root / "src" / "repro_torch"
+    mods = []
+    for path in sorted(port.rglob("*.py")):
+        rel = path.relative_to(port.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr

@@ -1,9 +1,13 @@
-"""Profile one sync ``fedpac_soap`` round of the PyTorch port on the GPU.
+"""Profile one sync round of the PyTorch port on the GPU.
 
-    python3 tools/profile_torch_round.py [--out DIR]
+    python3 tools/profile_torch_round.py [--algorithm NAME] [--qblock]
+                                         [--out DIR]
 
-Runs the ViT-Tiny main path of ``chip_smoke.py`` (10 clients at
-participation 0.5, K=10), warms up one round, then traces one round with
+Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
+0.5, K=10; ``fedpac_soap`` by default, Sophia at lr 2e-2 and
+``hessian_freq=10`` as ``chip_smoke.py`` runs it; ``--qblock`` puts both
+uploads on the int8 wire with error feedback), warms up one round, then
+traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
 (kernel time over wall time), device time grouped by kind of work, and the
@@ -26,6 +30,9 @@ ROOT = os.path.dirname(HERE)
 GROUPS = [
     ("matmul_fused kernel", ("matmul_fused",)),
     ("adam_moments kernel", ("adam_moments",)),
+    ("sophia_update kernel", ("sophia_update",)),
+    ("quantize kernel", ("qblock_quantize",)),
+    ("dequant_accumulate kernel", ("dequant_accumulate",)),
     ("QR refresh (geqrf/orgqr/householder)",
      ("geqrf", "orgqr", "householder", "larft", "larfb", "qr")),
     ("GEMM (cuBLAS: model, refresh product)", ("gemm", "sgemm", "cutlass",
@@ -39,6 +46,9 @@ GROUPS = [
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--algorithm", default="fedpac_soap")
+    ap.add_argument("--qblock", action="store_true",
+                    help="qblock codec on both uploads, error feedback on")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,8 +56,8 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from chip_smoke import card_line, vit_tiny_spec
-    from repro_torch.api import build_experiment, materialize
+    from chip_smoke import QBLOCK, SOPHIA_LR, card_line, vit_tiny_spec
+    from repro_torch.api import build_experiment, materialize, resolve
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -55,8 +65,12 @@ def main():
     print(card_line())
     spec = vit_tiny_spec()
     scn = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
-    exp = build_experiment("fedpac_soap", scenario=scn, participation=0.5,
-                           rounds=3)
+    kw = dict(QBLOCK) if args.qblock else {}
+    if resolve(args.algorithm).optimizer == "sophia":
+        kw.update(lr=SOPHIA_LR, hessian_freq=10)
+    exp = build_experiment(args.algorithm, scenario=scn, participation=0.5,
+                           rounds=3, **kw)
+    print(f"{args.algorithm} {kw}")
     exp.run_round()                      # warm-up: compiles, allocator
     t0 = time.perf_counter()
     exp.run_round()
