@@ -136,8 +136,15 @@ def build_kernels(dev):
     for path, compiler_log, secs in built:
         log(f"  {os.path.relpath(path, HERE)} with nvcc in {secs:.2f} s")
         for line in compiler_log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:   # registers, smem, spills
                 log("    " + line.strip())
+    from repro_torch.kernels.ns_ortho.kernel import kernel_library
+    lib = kernel_library()
+    bm, bn, bk, stages, threads, max_p, _, table, smem = lib.config
+    log(f"matmul_fused: {bm}x{bn} tiles, BK {bk}, {stages}-stage cp.async "
+        f"ring ({smem} B dynamic shared memory), {threads} threads, "
+        f"{lib.resident_blocks()} persistent blocks on the card, "
+        f"<= {max_p} problems per launch ({table} B table)")
     for name, kernel in (("adam_moments", adam_moments),
                          ("sophia_update", sophia_update)):
         t0 = time.perf_counter()
@@ -176,32 +183,62 @@ def gemm_forms(x, b2=0.95):
     ]
 
 
+def step_groups(forms):
+    """The products of ``gemm_forms`` over many leaves as SOAP's step
+    groups them: the L/R EMAs in one group, then one group per rotation
+    (5 groups of (lhs, rhs, aux, alpha, beta))."""
+    phases = {"L_ema": 0, "R_ema": 0, "QlT_G": 1, "G_Qr": 2, "Ql_N": 3,
+              "N_QrT": 4}
+    groups = [[] for _ in range(5)]
+    for name, *problem in forms:
+        groups[phases[name]].append(tuple(problem))
+    return groups
+
+
+def gemm_error(got, a, b, aux, alpha, beta, want):
+    """(max |err|, max err / bound) for the bound 2 (k+2) u (|alpha|
+    |A||B| + |beta| |aux|): two f32 sums in different orders."""
+    mag = abs(alpha) * torch.matmul(a.abs(), b.abs())
+    if aux is not None:
+        mag = mag + abs(beta) * aux.abs()
+    bound = 2 * (a.shape[-1] + 2) * U * mag + 1e-30
+    err = (got - want).abs()
+    return float(err.max()), float((err / bound).max())
+
+
 def check_matmul_fused(leaves):
-    """Kernel vs plain on every form; elementwise bound 2 (k+2) u
-    (|alpha| |A||B| + |beta| |aux|): two f32 sums in different orders."""
+    """Kernel vs plain on every form, one product per launch and as one
+    grouped launch over every form of every leaf; elementwise bound 2 (k+2)
+    u (|alpha| |A||B| + |beta| |aux|)."""
     from repro_torch.kernels.ns_ortho.kernel import (
-        matmul_fused, matmul_fused_plain,
+        matmul_fused, matmul_fused_group, matmul_fused_group_plain,
     )
     worst_err, worst_ratio = 0.0, 0.0
+    forms = []
     for (m, n, s), x in leaves:
         for name, a, b, aux, alpha, beta in gemm_forms(x):
-            got = matmul_fused(a, b, aux, alpha=alpha, beta=beta)
-            want = matmul_fused_plain(a, b, aux, alpha=alpha, beta=beta)
-            mag = abs(alpha) * torch.matmul(a.abs(), b.abs())
-            if aux is not None:
-                mag = mag + abs(beta) * aux.abs()
-            bound = 2 * (a.shape[-1] + 2) * U * mag + 1e-30
-            err = (got - want).abs()
-            ratio = float((err / bound).max())
-            worst_err = max(worst_err, float(err.max()))
-            worst_ratio = max(worst_ratio, ratio)
+            forms.append((f"{name} at (S={s}, m={m}, n={n})",
+                          (a, b, aux, alpha, beta)))
+    problems = [p for _, p in forms]
+    before = matmul_fused.launches
+    grouped = matmul_fused_group(problems)
+    if matmul_fused.launches != before + 1:
+        raise AssertionError(f"one group of {len(problems)} problems took "
+                             f"{matmul_fused.launches - before} launches")
+    for (what, p), got_g, want in zip(forms, grouped,
+                                      matmul_fused_group_plain(problems)):
+        got = matmul_fused(*p[:3], alpha=p[3], beta=p[4])
+        for form, out in (("single", got), ("grouped", got_g)):
+            err, ratio = gemm_error(out, *p, want)
+            worst_err, worst_ratio = max(worst_err, err), max(worst_ratio,
+                                                              ratio)
             if ratio > 1.0:
                 raise AssertionError(
-                    f"matmul_fused {name} at (S={s}, m={m}, n={n}) exceeds "
-                    f"its bound: max err {float(err.max()):.3e}, "
-                    f"err/bound {ratio:.3f}")
-    log(f"matmul_fused vs plain: max |err| {worst_err:.3e}, max err/bound "
-        f"{worst_ratio:.3f} (bound 2(k+2)u sum|a||b|)")
+                    f"matmul_fused ({form}) {what} exceeds its bound: max "
+                    f"err {err:.3e}, err/bound {ratio:.3f}")
+    log(f"matmul_fused vs plain, single and one grouped launch of "
+        f"{len(problems)} products: max |err| {worst_err:.3e}, max "
+        f"err/bound {worst_ratio:.3f} (bound 2(k+2)u sum|a||b|)")
     return worst_err
 
 
@@ -384,9 +421,13 @@ def time_kernels(dev, gen):
     kernel, the plain version and a PyTorch library call, beside the
     card's bound for the same work.  ``ms`` (CUDA events around the
     loop of launches) includes the host's launch rate; ``device_ms`` and
-    its plain and library counterparts are the device time alone."""
+    its plain and library counterparts are the device time alone.
+    ``matmul_fused`` is timed as SOAP's step runs it (5 grouped launches:
+    ``ms``, ``device_ms``) and one product per launch (288 launches:
+    ``single_ms``, ``single_device_ms``); its library time is cuBLAS's
+    ``bmm``/``baddbmm``, one call per product."""
     from repro_torch.kernels.ns_ortho.kernel import (
-        matmul_fused, matmul_fused_plain,
+        matmul_fused, matmul_fused_group, matmul_fused_plain,
     )
     from repro_torch.kernels.soap_rotate.kernel import (
         adam_moments, adam_moments_plain,
@@ -430,21 +471,28 @@ def time_kernels(dev, gen):
     adam_bound = max(adam_bytes / HBM_BYTES_PER_S,
                      adam_flops / FP32_FLOPS) * 1e3
 
+    groups = step_groups(forms)
+
+    def grouped():
+        for group in groups:
+            matmul_fused_group(group)
+
     out = {}
     t, d = {}, {}
-    for key, fn in (("k", gemm(matmul_fused)), ("p", gemm(matmul_fused_plain)),
-                    ("l", gemm(library))):
+    for key, fn in (("g", grouped), ("k", gemm(matmul_fused)),
+                    ("p", gemm(matmul_fused_plain)), ("l", gemm(library))):
         t[key], d[key] = timed(fn), device_ms(fn)
     out["matmul_fused"] = dict(
-        ms=t["k"], plain_ms=t["p"], library_ms=t["l"], bound_ms=gemm_bound,
-        bound_by=gemm_by, device_ms=d["k"], plain_device_ms=d["p"],
-        library_device_ms=d["l"])
+        ms=t["g"], plain_ms=t["p"], library_ms=t["l"], bound_ms=gemm_bound,
+        bound_by=gemm_by, device_ms=d["g"], plain_device_ms=d["p"],
+        library_device_ms=d["l"], single_ms=t["k"], single_device_ms=d["k"])
     log(f"matmul_fused, one local step of ViT-Tiny (S={S_VIT}, "
-        f"{len(forms)} launches, {flops / 1e9:.1f} GFLOP, "
-        f"{bytes_ / 1e6:.1f} MB): kernel {t['k']:.3f} ms, plain "
-        f"{t['p']:.3f} ms, torch.bmm/baddbmm {t['l']:.3f} ms; device time "
-        f"{d['k']:.3f} / {d['p']:.3f} / {d['l']:.3f} ms; bound "
-        f"{gemm_bound:.3f} ms ({gemm_by})")
+        f"{len(forms)} products, {flops / 1e9:.1f} GFLOP, "
+        f"{bytes_ / 1e6:.1f} MB): grouped ({len(groups)} launches) "
+        f"{t['g']:.3f} ms, single ({len(forms)} launches) {t['k']:.3f} ms, "
+        f"plain {t['p']:.3f} ms, torch.bmm/baddbmm {t['l']:.3f} ms; device "
+        f"time {d['g']:.3f} / {d['k']:.3f} / {d['p']:.3f} / {d['l']:.3f} "
+        f"ms; bound {gemm_bound:.3f} ms ({gemm_by})")
     t, d = {}, {}
     for key, fn in (("k", adam(adam_moments)),
                     ("p", adam(adam_moments_plain))):
@@ -642,6 +690,13 @@ def main_paths(vit_shapes, cnn_shapes):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
+        if "matmul_fused" in expect:
+            # SOAP's step is 5 grouped launches: the EMAs, 4 rotations
+            want = 5 * exp.fed.local_steps * exp.fed.rounds
+            if launches["matmul_fused"] != want:
+                raise AssertionError(
+                    f"{label}: {launches['matmul_fused']} matmul_fused "
+                    f"launches, want {want} (5 per local step)")
         return hist
 
     # SOAP

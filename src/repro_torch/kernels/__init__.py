@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version:
 
-  ns_ortho/kernel.py      matmul_fused  CUDA C++ (csrc/matmul_fused.cu)
+  ns_ortho/kernel.py      matmul_fused, matmul_fused_group  CUDA C++
+                          (csrc/matmul_fused.cu: one grouped launch)
   soap_rotate/kernel.py   adam_moments  Triton
   soap_rotate/ops.py      soap_rotated_update, composed from the two
   sophia_update/kernel.py sophia_update  Triton

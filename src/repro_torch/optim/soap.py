@@ -10,22 +10,25 @@ fall back to Adam.  Trees may carry ``lead`` leading batch dims (the
 cohort-stacked client axis): every matrix op is batched over them, so one
 update steps all clients at once.
 
-Every matrix leaf's work goes through the port's kernels: the L/R EMAs
-through ``matmul_fused``'s epilogue form (alpha = 1-b2, beta = b2,
-aux = L), the rotated step through ``soap_rotated_update`` (matmul_fused +
-adam_moments), and the Adam fallback through ``adam_moments``.  The
-refresh product P @ Q and the QR stay library calls, as the reference
-leaves them to XLA.
+Every matrix leaf's work goes through the port's kernels, phase by phase
+over all matrix leaves so each product phase is one grouped
+``matmul_fused`` launch: the L/R EMAs (the epilogue form, alpha = 1-b2,
+beta = b2, aux = L/R), then Q_L^T G, G Q_R, ``adam_moments`` per leaf, Q_L
+N and N Q_R^T — the per-leaf math and order of ``soap_rotated_update``.  A
+ViT-Tiny step is 5 launches of ``matmul_fused`` instead of 288.  The Adam
+fallback goes through ``adam_moments``.  The refresh product P @ Q and the
+QR stay library calls, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ns_ortho.kernel import matmul_fused
+from repro_torch.kernels.ns_ortho.kernel import matmul_fused_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
-from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
 from repro_torch.optim.api import LocalOptimizer, as_matrix, matrix_mask
-from repro_torch.utils.tree import tree_map, tree_map_with_path
+from repro_torch.utils.tree import (
+    tree_flatten_with_path, tree_map, tree_map_with_path,
+)
 
 
 def _eig_refresh(p_mat, q):
@@ -76,54 +79,89 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                 p.shape, device=p.device, dtype=torch.float32), params, mask)
         return {"mat": mat, "am": adam, "av": adam}
 
-    def _matrix_update(g, st, p, step, lead):
-        g, orig_shape = as_matrix(g.to(torch.float32), lead)
-        gt = g.transpose(-1, -2)
-        new = dict(st)
-        if "L" in st:
-            new["L"] = matmul_fused(g, gt, st["L"], alpha=1 - b2, beta=b2)
-        if "R" in st:
-            new["R"] = matmul_fused(gt, g, st["R"], alpha=1 - b2, beta=b2)
+    def _phase(xs, states, key, operands):
+        """One grouped ``matmul_fused`` over the leaves whose state holds
+        ``key``: ``operands(state[key], x) -> (lhs, rhs)``; the other
+        leaves pass ``xs`` through (identity on a missing side)."""
+        idx = [i for i, st in enumerate(states) if key in st]
+        outs = matmul_fused_group([
+            (*operands(states[i][key], xs[i]), None, 1.0, 0.0) for i in idx])
+        xs = list(xs)
+        for i, out in zip(idx, outs):
+            xs[i] = out
+        return xs
+
+    def _matrix_updates(gs, states, step):
+        """The matrix leaves' SOAP step, phase by phase over all leaves
+        (one launch per product phase).  Per leaf the math and its order
+        are ``soap_rotated_update``'s after the EMAs and the refresh."""
+        new = [dict(st) for st in states]
+        # 1. L/R EMAs: L' = (1-b2) G G^T + b2 L, R' = (1-b2) G^T G + b2 R
+        problems, slots = [], []
+        for i, (g, st) in enumerate(zip(gs, states)):
+            gt = g.transpose(-1, -2)
+            for key, lhs, rhs in (("L", g, gt), ("R", gt, g)):
+                if key in st:
+                    problems.append((lhs, rhs, st[key], 1 - b2, b2))
+                    slots.append((i, key))
+        for (i, key), x in zip(slots, matmul_fused_group(problems)):
+            new[i][key] = x
+        # 2. the scheduled eigenbasis refresh (a library QR, as the
+        #    reference leaves it to XLA)
         if step % precond_freq == 0:
-            if "QL" in st:
-                new["QL"] = _eig_refresh(new["L"], st["QL"])
-            if "QR" in st:
-                new["QR"] = _eig_refresh(new["R"], st["QR"])
-        # Bias-corrected Adam in the rotated basis (t = step + 1): moments
-        # restart from zero every federated round
-        d, new["M"], new["V"] = soap_rotated_update(
-            g, new.get("QL"), new.get("QR"), st["M"], st["V"], b1=b1, b2=b2,
-            eps=eps, step=step)
-        if orig_shape is not None:
-            d = d.reshape(orig_shape)
-        if weight_decay:
-            d = d + weight_decay * p.to(torch.float32)
-        return d, new
+            for st in new:
+                for q, f in (("QL", "L"), ("QR", "R")):
+                    if q in st:
+                        st[q] = _eig_refresh(st[f], st[q])
+        # 3-4. G' = Q_L^T G Q_R
+        rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))
+        rot = _phase(rot, new, "QR", lambda q, g: (g, q))
+        # 5. bias-corrected Adam in the rotated basis (t = step + 1):
+        #    moments restart from zero every federated round
+        ns = []
+        for g_rot, st in zip(rot, new):
+            n, st["M"], st["V"] = adam_moments(
+                g_rot, st["M"], st["V"], b1=b1, b2=b2, eps=eps, step=step)
+            ns.append(n)
+        # 6-7. D = Q_L N Q_R^T
+        ds = _phase(ns, new, "QL", lambda q, n: (q, n))
+        ds = _phase(ds, new, "QR", lambda q, n: (n, q.transpose(-1, -2)))
+        return ds, new
 
     def update(grads, state, params, step: int, lead: int = 0,
                extras=None):
         del extras  # SOAP takes no per-step inputs
         mask = matrix_mask(params, lead)
         out = {}
-
-        def leaf(path, p):
+        mats = []                        # (path, orig_shape) of matrix leaves
+        gs, states = [], []
+        for path, p in tree_flatten_with_path(params):
             g = _get(grads, path)
             if _get(mask, path):
-                d, st = _matrix_update(g, _get(state["mat"], path), p, step,
-                                       lead)
-                out[path] = (st, None, None)
+                gm, orig_shape = as_matrix(g.to(torch.float32), lead)
+                mats.append((path, orig_shape))
+                gs.append(gm)
+                states.append(_get(state["mat"], path))
             else:
                 d, am, av = adam_moments(
                     g, _get(state["am"], path), _get(state["av"], path),
                     b1=adam_b1, b2=adam_b2, eps=1e-8, step=step)
-                if weight_decay:
-                    d = d + weight_decay * p.to(torch.float32)
-                out[path] = (None, am, av)
+                out[path] = (d, None, am, av)
+        ds, news = _matrix_updates(gs, states, step)
+        for (path, orig_shape), d, st in zip(mats, ds, news):
+            if orig_shape is not None:
+                d = d.reshape(orig_shape)
+            out[path] = (d, st, None, None)
+
+        def leaf(path, p):
+            d = out[path][0]
+            if weight_decay:
+                d = d + weight_decay * p.to(torch.float32)
             return d
 
         direction = tree_map_with_path(leaf, params)
         new_state = {
-            name: tree_map_with_path(lambda path, _: out[path][i], params)
+            name: tree_map_with_path(lambda path, _: out[path][i + 1], params)
             for i, name in enumerate(("mat", "am", "av"))}
         return direction, new_state
 

@@ -25,7 +25,8 @@ import torch
 from repro.kernels.ns_ortho.kernel import matmul_fused as jax_matmul_fused
 from repro.kernels.soap_rotate import ops as jax_sr_ops, ref as jax_sr_ref
 from repro.kernels.soap_rotate.kernel import adam_moments as jax_adam_moments
-from repro_torch.kernels.ns_ortho.kernel import matmul_fused
+from repro_torch.kernels.ns_ortho import kernel as nsk
+from repro_torch.kernels.ns_ortho.kernel import matmul_fused, matmul_fused_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
 from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
 
@@ -204,3 +205,227 @@ def test_soap_rotated_update_batched_and_one_sided(side):
             step=jnp.int32(1))
         for w, o in zip(want, got):
             assert np.abs(np.asarray(w) - o[i].numpy()).max() < 5e-5
+
+
+# ------------------------------------------------------ matmul_fused_group
+
+# Per leaf (S, m, n): ViT-like at narrow width and the CNN's leaves (27 x 8
+# has 108-byte rows); the (27, 8) leaf's Q_R is the batch-stride-0
+# ``expand``ed identity SOAP starts from.
+GROUP_LEAVES = [(2, 24, 72), (2, 24, 24), (2, 72, 24), (2, 27, 8),
+                (2, 8, 16), (2, 16, 32)]
+
+
+def _leaf_forms(s, m, n):
+    """SOAP's six products for one leaf as numpy (lhs, rhs, aux, alpha,
+    beta) plus the torch operands as the kernel sees them (transposes as
+    strided views, the identity Q as an ``expand``)."""
+    r = _rng("group", s, m, n)
+    g = r.standard_normal((s, m, n)).astype(np.float32)
+    ql = np.stack([_qr(r.standard_normal((m, m))) for _ in range(s)])
+    qr = (np.broadcast_to(np.eye(n, dtype=np.float32), (s, n, n))
+          if (m, n) == (27, 8)
+          else np.stack([_qr(r.standard_normal((n, n))) for _ in range(s)]))
+    lf, rf = (r.standard_normal((s, d, d)).astype(np.float32) for d in (m, n))
+    nn_ = r.standard_normal((s, m, n)).astype(np.float32)
+    tg, tql, tn = _t(g), _t(ql), _t(nn_)
+    tqr = (torch.eye(n).expand(s, n, n) if (m, n) == (27, 8) else _t(qr))
+    tr = lambda x: np.swapaxes(x, -1, -2)     # noqa: E731
+    forms_np = [(g, tr(g), lf, 0.05, 0.95), (tr(g), g, rf, 0.05, 0.95),
+                (tr(ql), g, None, 1.0, 0.0), (g, qr, None, 1.0, 0.0),
+                (ql, nn_, nn_ * 0.5, -0.7, 1.5), (nn_, tr(qr), None, 2.0, 0.0)]
+    forms_t = [(tg, tg.transpose(1, 2), _t(lf), 0.05, 0.95),
+               (tg.transpose(1, 2), tg, _t(rf), 0.05, 0.95),
+               (tql.transpose(1, 2), tg, None, 1.0, 0.0),
+               (tg, tqr, None, 1.0, 0.0),
+               (tql, tn, _t(nn_ * 0.5), -0.7, 1.5),
+               (tn, tqr.transpose(1, 2), None, 2.0, 0.0)]
+    return forms_np, forms_t
+
+
+@pytest.fixture(scope="module")
+def mixed_group():
+    """One ``matmul_fused_group`` call over every form of every leaf."""
+    forms = [_leaf_forms(*leaf) for leaf in GROUP_LEAVES]
+    problems = [p for _, ft in forms for p in ft]
+    outs = matmul_fused_group(problems)
+    per_leaf, i = [], 0
+    for fn, ft in forms:
+        per_leaf.append((fn, outs[i:i + len(ft)]))
+        i += len(ft)
+    return per_leaf
+
+
+@pytest.mark.parametrize("leaf", range(len(GROUP_LEAVES)),
+                         ids=[f"{m}x{n}" for _, m, n in GROUP_LEAVES])
+def test_matmul_fused_group_plain_matches_pallas_per_problem(mixed_group,
+                                                             leaf):
+    forms_np, outs = mixed_group[leaf]
+    for (lhs, rhs, aux, alpha, beta), got in zip(forms_np, outs):
+        assert tuple(got.shape) == (lhs.shape[0], lhs.shape[1],
+                                    rhs.shape[2])
+        for b in range(lhs.shape[0]):
+            x = None if aux is None else aux[b]
+            want = jax_matmul_fused(
+                jnp.asarray(lhs[b]), jnp.asarray(rhs[b]),
+                None if x is None else jnp.asarray(x), alpha=alpha,
+                beta=beta, interpret=True)
+            bound = _dot_bound(lhs[b], rhs[b], x, alpha, beta)
+            assert np.all(np.abs(got[b].numpy() - np.asarray(want)) <= bound)
+
+
+def test_matmul_fused_group_of_one_is_matmul_fused():
+    _, forms = _leaf_forms(2, 24, 72)
+    for lhs, rhs, aux, alpha, beta in forms:
+        (got,) = matmul_fused_group([(lhs, rhs, aux, alpha, beta)])
+        assert torch.equal(got, matmul_fused(lhs, rhs, aux, alpha=alpha,
+                                             beta=beta))
+    assert matmul_fused_group([]) == []
+
+
+def _row(batch, m, n, k, *, ptr=4096):
+    lhs, rhs = torch.empty((batch, m, k)), torch.empty((batch, k, n))
+    return nsk.problem_row(lhs, rhs, None, 1.0, 0.0, ptr)
+
+
+def test_group_tables_tile_counts_prefix_offsets_and_k_order():
+    tile = (128, 64)
+    shapes = [(5, 192, 576, 192), (2, 27, 27, 8), (5, 768, 768, 192),
+              (5, 192, 192, 768), (3, 0, 10, 50), (1, 130, 65, 576)]
+    (table, idx), = nsk.group_tables([_row(*s) for s in shapes], tile)
+    # longest k first, stable; the empty problem (m = 0) is dropped
+    assert idx == [3, 5, 0, 2, 1]
+    recs = table[nsk.HEADER_BYTES:].view(nsk.PROBLEM)[:len(idx)]
+    want_tiles = {0: 5 * 2 * 9, 1: 2 * 1 * 1, 2: 5 * 6 * 12, 3: 5 * 2 * 3,
+                  5: 1 * 2 * 2}
+    assert [(r["tiles_m"], r["tiles_n"]) for r in recs] == [
+        (-(-shapes[i][1] // 128), -(-shapes[i][2] // 64)) for i in idx]
+    counts = [want_tiles[i] for i in idx]
+    assert recs["tile_start"].tolist() == list(np.cumsum(counts) - counts)
+    assert table[:8].view(np.int32).tolist() == [len(idx), sum(counts)]
+    assert recs["k"].tolist() == [shapes[i][3] for i in idx]
+    assert table.nbytes == nsk.TABLE_BYTES
+
+
+def test_group_tables_split_at_the_parameter_limit():
+    assert nsk.MAX_PROBLEMS == (32764 - 16) // 144 == 227
+    assert nsk.PROBLEM.itemsize == 144
+    assert nsk.TABLE_BYTES <= 32764
+    rows = [_row(1, 8, 8, 4 + i) for i in range(2 * nsk.MAX_PROBLEMS + 5)]
+    tables = nsk.group_tables(rows)
+    assert [len(i) for _, i in tables] == [nsk.MAX_PROBLEMS,
+                                           nsk.MAX_PROBLEMS, 5]
+    assert sorted(i for _, idx in tables for i in idx) == list(range(
+        len(rows)))
+    small = nsk.group_tables(rows[:7], max_problems=3)
+    assert [len(i) for _, i in small] == [3, 3, 1]
+    for table, idx in small:
+        recs = table[nsk.HEADER_BYTES:].view(nsk.PROBLEM)
+        assert table[:4].view(np.int32)[0] == len(idx)
+        assert recs["tile_start"][0] == 0
+
+
+@pytest.mark.parametrize("case,want", [
+    # (ptr, (sb, sx, sk), ext_x, k, batch) -> (kc, vec)
+    ("row-major lhs, 16 B rows", ((4096, (64, 8, 1), 8, 8, 2), (True, True))),
+    ("CNN 27-wide rows (108 B)", ((4096, (729, 27, 1), 27, 27, 2),
+                                  (True, False))),
+    ("k-major (transposed view)", ((4096, (64, 1, 8), 8, 8, 2),
+                                   (False, True))),
+    ("misaligned base", ((4100, (64, 8, 1), 8, 8, 2), (True, False))),
+    ("identity expand, stride 0", ((4096, (0, 16, 1), 16, 16, 5),
+                                   (True, True))),
+    ("odd batch stride", ((4096, (66, 8, 1), 8, 8, 2), (True, False))),
+    ("odd batch stride, batch 1", ((4096, (66, 8, 1), 8, 8, 1),
+                                   (True, True))),
+    ("no unit stride", ((4096, (64, 2, 16), 4, 4, 1), (False, False))),
+    ("single row", ((4096, (27, 27, 1), 1, 27, 1), (True, True))),
+])
+def test_operand_flags(case, want):
+    assert nsk.operand_flags(*want[0]) == want[1], case
+
+
+def test_problem_row_flags_for_soap_forms():
+    """G G^T and G^T G read G through its strides: k-contiguous on both
+    sides for L, m/n-contiguous for R; a (27, 27) Q takes 4-byte copies;
+    an output 27 wide, or an aux with 108-byte rows, takes 4-byte
+    accesses."""
+    g = torch.empty((2, 27, 8))
+    q = torch.empty((2, 27, 27))
+    flags = lambda row: row[20]                    # noqa: E731
+    assert flags(nsk.problem_row(g, g.transpose(1, 2), None, 1, 0, 0)) == (
+        nsk.A_KC | nsk.B_KC | nsk.A_VEC | nsk.B_VEC)
+    assert flags(nsk.problem_row(g.transpose(1, 2), g, None, 1, 0, 0)) == (
+        nsk.A_VEC | nsk.B_VEC | nsk.O_VEC)
+    assert flags(nsk.problem_row(q.transpose(1, 2), g, None, 1, 0, 0)) == (
+        nsk.B_VEC | nsk.O_VEC)
+    assert flags(nsk.problem_row(q, g, None, 1, 0, 0)) == (
+        nsk.A_KC | nsk.B_VEC | nsk.O_VEC)
+    assert flags(nsk.problem_row(q, g, torch.empty((2, 27, 8)), 1, 0, 0)) == (
+        nsk.A_KC | nsk.B_VEC | nsk.O_VEC)
+    assert flags(nsk.problem_row(q, g, g[:, :, :].transpose(1, 2)
+                                 .transpose(1, 2), 1, 0, 0)) & nsk.O_VEC
+    assert not flags(nsk.problem_row(q, q, q, 1, 0, 0)) & nsk.O_VEC
+
+
+def test_arena_offsets_are_128_byte_aligned():
+    offsets, total = nsk.arena_offsets([5, 32, 33, 0, 1])
+    assert offsets == [0, 32, 64, 128, 128]
+    assert total == 160
+
+
+# --------------------------------------------------------- phased SOAP step
+
+def _soap_per_leaf(g, st, step, *, b1, b2, eps, precond_freq):
+    """One matrix leaf's SOAP step composed leaf by leaf: the EMAs through
+    ``matmul_fused``, the refresh, then ``soap_rotated_update``."""
+    new = dict(st)
+    gt = g.transpose(-1, -2)
+    if "L" in st:
+        new["L"] = matmul_fused(g, gt, st["L"], alpha=1 - b2, beta=b2)
+    if "R" in st:
+        new["R"] = matmul_fused(gt, g, st["R"], alpha=1 - b2, beta=b2)
+    if step % precond_freq == 0:
+        for q, f in (("QL", "L"), ("QR", "R")):
+            if q in st:
+                new[q] = torch.linalg.qr(torch.matmul(new[f], st[q]))[0]
+    d, new["M"], new["V"] = soap_rotated_update(
+        g, new.get("QL"), new.get("QR"), st["M"], st["V"], b1=b1, b2=b2,
+        eps=eps, step=step)
+    return d, new
+
+
+@pytest.mark.parametrize("max_precond_dim", [8192, 15],
+                         ids=["two-sided", "one-sided"])
+def test_phased_soap_update_equals_per_leaf_composition(max_precond_dim):
+    """The phased update (one grouped product per phase over all leaves)
+    equals the per-leaf composition bit for bit on the CPU, for 2-D, conv
+    and 3-D expert leaves stacked over 3 clients; at 15, (12, 20) keeps
+    only L and the (18, 8) conv view only R."""
+    from repro_torch.optim import api, soap
+    from repro_torch.utils.tree import tree_flatten_with_path
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, precond_freq=2)
+    opt = soap.make(max_precond_dim=max_precond_dim, **kw)
+    r = _rng("phased", max_precond_dim)
+    shapes = {"w": (12, 20), "stem": (3, 3, 2, 8), "experts": (2, 10, 12),
+              "bias": (20,)}
+    params = {k: _t(r.standard_normal((3, *s))) for k, s in shapes.items()}
+    state = opt.init(params, lead=1)
+    ref = {k: dict(state["mat"][k]) for k in ("w", "stem", "experts")}
+    sides = {k: set(v) for k, v in ref.items()}
+    if max_precond_dim == 15:
+        assert sides["w"] == {"L", "QL", "M", "V"}
+        assert sides["stem"] == {"R", "QR", "M", "V"}
+    assert sides["experts"] == {"L", "QL", "R", "QR", "M", "V"}
+    for step in range(3):
+        grads = {k: _t(r.standard_normal(p.shape)) for k, p in params.items()}
+        d, state = opt.update(grads, state, params, step, lead=1)
+        for k in ref:
+            g, shape = api.as_matrix(grads[k], lead=1)
+            want_d, ref[k] = _soap_per_leaf(g, ref[k], step, **kw)
+            if shape is not None:
+                want_d = want_d.reshape(shape)
+            assert torch.equal(d[k], want_d), (k, step)
+            for key, x in ref[k].items():
+                assert torch.equal(state["mat"][k][key], x), (k, key, step)
+    assert len(tree_flatten_with_path(d)) == len(shapes)

@@ -6,9 +6,9 @@ host that has none:
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances:
-  * matmul_fused: the classical dot-product bound |err| <= 2 (k+2) u
-    sum_k |a||b| (u = 2^-24) elementwise — two f32 sums in different
-    orders.
+  * matmul_fused (one product or a group): the classical dot-product
+    bound |err| <= 2 (k+2) u (|alpha| sum_k |a||b| + |beta| |aux|)
+    (u = 2^-24) elementwise — two f32 sums in different orders.
   * adam_moments: 1e-6 max(1, |x|) on m', v' (the same expression, FMA
     contraction aside) and 1e-5 max(1, |n|) on n (a division and a square
     root, each rounded or approximated differently).
@@ -30,7 +30,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.ns_ortho.kernel import (
-    matmul_fused, matmul_fused_plain,
+    MAX_PROBLEMS, matmul_fused, matmul_fused_group, matmul_fused_group_plain,
+    matmul_fused_plain,
 )
 from repro_torch.kernels.soap_rotate.kernel import (
     adam_moments, adam_moments_plain,
@@ -97,6 +98,87 @@ def test_matmul_fused_kernel_rejects_non_f32(cuda):
     x = torch.ones(4, 4, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         matmul_fused(x, x)
+
+
+def _mixed_group(gen, dev):
+    """SOAP's six forms per leaf on ViT-like and the CNN's misaligned
+    shapes (27 x 8: 108-byte rows), the identity Q as a batch-stride-0
+    ``expand``, transposed views, with and without aux, varied alpha/beta,
+    and an operand at a 4-byte storage offset."""
+    problems = []
+    for s, m, n in ((5, 192, 576), (5, 192, 192), (2, 768, 192),
+                    (2, 27, 8), (2, 8, 16), (2, 16, 32)):
+        g = _randn(gen, s, m, n, dev=dev)
+        ql = _randn(gen, s, m, m, dev=dev)
+        eye = torch.eye(n, device=dev).expand(s, n, n)
+        gt = g.transpose(1, 2)
+        problems += [
+            (g, gt, _randn(gen, s, m, m, dev=dev), 0.05, 0.95),
+            (gt, g, _randn(gen, s, n, n, dev=dev), 0.05, 0.95),
+            (ql.transpose(1, 2), g, None, 1.0, 0.0),
+            (g, eye, None, 1.0, 0.0),
+            (ql, g, _randn(gen, s, m, n, dev=dev), -0.5, 2.0),
+            (g, eye.transpose(1, 2), None, 0.7, 0.0),
+        ]
+    big = _randn(gen, 3, 41, 30, dev=dev)
+    problems.append((big[:, 1:, 1:], _randn(gen, 3, 29, 13, dev=dev), None,
+                     1.0, 0.0))
+    return problems
+
+
+def _assert_group_close(problems, got):
+    want = matmul_fused_group_plain(
+        [(a.cpu(), b.cpu(), None if x is None else x.cpu(), al, be)
+         for a, b, x, al, be in problems])
+    assert len(got) == len(want)
+    for (a, b, x, al, be), gv, wv in zip(problems, got, want):
+        assert gv.shape == wv.shape
+        err = (gv.cpu().double() - wv.double()).abs()
+        bound = _bound(a.cpu(), b.cpu(), None if x is None else x.cpu(), al,
+                       be)
+        assert bool((err <= bound).all()), (tuple(a.shape), tuple(b.shape))
+
+
+def test_matmul_fused_group_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(13)
+    problems = _mixed_group(gen, cuda)
+    before = matmul_fused.launches
+    got = matmul_fused_group(problems)
+    torch.cuda.synchronize()
+    assert matmul_fused.launches == before + 1
+    _assert_group_close(problems, got)
+
+
+def test_matmul_fused_group_splits_at_the_table_limit(cuda):
+    """A group above MAX_PROBLEMS takes one launch per MAX_PROBLEMS
+    problems, and each launch is counted."""
+    gen = torch.Generator().manual_seed(17)
+    problems = []
+    for i in range(MAX_PROBLEMS + 40):
+        m, k, n = 5 + i % 7, 3 + i % 11, 4 + i % 5
+        problems.append((_randn(gen, 2, m, k, dev=cuda),
+                         _randn(gen, 2, k, n, dev=cuda),
+                         _randn(gen, 2, m, n, dev=cuda) if i % 2 else None,
+                         0.5 + i % 3, -1.0))
+    before = matmul_fused.launches
+    got = matmul_fused_group(problems)
+    torch.cuda.synchronize()
+    assert matmul_fused.launches == before + 2
+    _assert_group_close(problems, got)
+
+
+def test_matmul_fused_group_rejects_bad_problems(cuda):
+    x = torch.ones(2, 4, 4, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        matmul_fused_group([(x, x, None, 1.0, 0.0),
+                            (x, x.double(), None, 1.0, 0.0)])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        matmul_fused_group([(x, x, None, 1.0, 0.0),
+                            (x, torch.ones(2, 5, 4, device=cuda), None, 1.0,
+                             0.0)])
+    with pytest.raises(ValueError, match="several devices"):
+        matmul_fused_group([(x, x, None, 1.0, 0.0),
+                            (x.cpu(), x.cpu(), None, 1.0, 0.0)])
 
 
 @pytest.mark.parametrize("shape", [(5, 192, 576), (7,), (3, 40, 50)])
