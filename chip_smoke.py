@@ -6,7 +6,8 @@ Builds the port's Hopper kernels from this checkout's sources (one
 ``nvcc`` per CUDA source, all started together, and Triton's), holds each
 against its plain PyTorch version on the card at the main path's shapes
 (and times kernel, plain version, a PyTorch library yardstick where one
-exists, and the card's bound), then drives the port's paths through
+exists, and the card's bound; the grouped kernels also one leaf or
+product a launch), then drives the port's paths through
 ``repro_torch.api.build_experiment``, each with the launch counters set
 to 0 just before it and read just after:
 
@@ -16,7 +17,10 @@ to 0 just before it and read just after:
     the qblock int8 wire on both channels and error feedback, at ViT-Tiny
     width, and that last one on ``cifar_like_cnn``.
 
-Each path fails if one of its kernels was never launched.  The two CNN
+Each path fails if one of its kernels was never launched, and unless
+SOAP's step is 5 ``matmul_fused`` launches, Sophia's step one
+``sophia_update`` launch and a qblock round 3 ``dequant_accumulate``
+launches (the delta flush and theta's two).  The two CNN
 runs are repeated on the CPU (plain versions) from the same weights (and,
 for Sophia, the same Hutchinson probes), and the histories must agree.
 
@@ -60,7 +64,8 @@ QBLOCK = dict(delta_codec="qblock", theta_codec="qblock",
               error_feedback=True)
 SOPHIA_TOL = {"loss": 1e-3, "test_loss": 1e-3, "test_acc": 2 / 768}
 SOPHIA_REL_TOL = {"drift": 1e-2, "norm_drift": 1e-2}
-CUDA_SOURCES = ("matmul_fused.cu", "qblock.cu", "fused_agg.cu")
+CUDA_SOURCES = ("matmul_fused.cu", "sophia_update.cu", "qblock.cu",
+                "fused_agg.cu")
 
 
 def log(*a):
@@ -118,10 +123,11 @@ def device_ms(fn):
 
 def build_kernels(dev):
     """Every CUDA source built by its own nvcc, all started together, then
-    the Triton kernels compiled by a first launch."""
+    the Triton kernel compiled by a first launch."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.fused_agg import kernel as fused_agg
     from repro_torch.kernels.soap_rotate.kernel import adam_moments
-    from repro_torch.kernels.sophia_update.kernel import sophia_update
+    from repro_torch.kernels.sophia_update import kernel as sophia
 
     def one(source):
         t0 = time.perf_counter()
@@ -145,14 +151,22 @@ def build_kernels(dev):
         f"ring ({smem} B dynamic shared memory), {threads} threads, "
         f"{lib.resident_blocks()} persistent blocks on the card, "
         f"<= {max_p} problems per launch ({table} B table)")
-    for name, kernel in (("adam_moments", adam_moments),
-                         ("sophia_update", sophia_update)):
-        t0 = time.perf_counter()
-        x = torch.ones(8, device=dev)
-        kernel(x, x, x)
-        torch.cuda.synchronize()
-        log(f"compiled {name} with Triton in "
-            f"{time.perf_counter() - t0:.2f} s")
+    lib = sophia.kernel_library()
+    threads, chunk, max_l, _, table = lib.config
+    log(f"sophia_update: {lib.resident_blocks()} persistent blocks of "
+        f"{threads} threads, {chunk}-element chunks, <= {max_l} leaves per "
+        f"launch ({table} B table)")
+    lib = fused_agg.kernel_library()
+    threads, elems, max_l, _, table = lib.config
+    log(f"dequant_accumulate: {lib.resident_blocks()} persistent blocks of "
+        f"{threads} threads, {elems} outputs a thread, <= {max_l} leaves "
+        f"per launch ({table} B table)")
+    t0 = time.perf_counter()
+    x = torch.ones(8, device=dev)
+    adam_moments(x, x, x)
+    torch.cuda.synchronize()
+    log(f"compiled adam_moments with Triton in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------------------------------ kernel checks
@@ -326,27 +340,56 @@ def sophia_inputs(shape, dev, gen):
     return g, m, h
 
 
+def with_nonfinite(leaves):
+    """Puts NaN and +-inf into h and g of the first leaves: h = NaN, +inf,
+    -inf and g = NaN, +inf, -inf beside h = 0."""
+    nonfinite = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for g, _, h in leaves[:4]:
+        h.view(-1)[:3] = nonfinite
+        g.view(-1)[3:6] = nonfinite
+        h.view(-1)[3:6] = 0.0
+    return leaves
+
+
+def bits_differ(got, want):
+    """Elements where got and want differ bitwise, NaN matching NaN."""
+    nan = torch.isnan(want)
+    same = torch.where(nan, torch.isnan(got),
+                       got.view(torch.int32) == want.view(torch.int32))
+    return int((~same).sum())
+
+
 def check_sophia_update(stacked_shapes, dev, gen):
-    """Kernel vs plain on every leaf: d and m' within 1e-6 max(1, |x|)
-    (the same f32 expression; the kernel contracts no FMA)."""
+    """Kernel vs plain on every leaf, in one grouped launch and one leaf a
+    launch: d and m' bitwise equal (the kernel rounds as the plain version
+    does), NaN and +-inf in h and g included."""
     from repro_torch.kernels.sophia_update.kernel import (
-        sophia_update, sophia_update_plain,
+        sophia_update, sophia_update_group, sophia_update_plain,
     )
-    worst, saturated = 0.0, 0
-    for shape in stacked_shapes:
-        g, m, h = sophia_inputs(shape, dev, gen)
-        got = sophia_update(g, m, h)
+    leaves = with_nonfinite([sophia_inputs(shape, dev, gen)
+                             for shape in stacked_shapes])
+    before = sophia_update.launches
+    ds, mos = sophia_update_group(*zip(*leaves))
+    if sophia_update.launches != before + 1:
+        raise AssertionError(f"one group of {len(leaves)} leaves took "
+                             f"{sophia_update.launches - before} launches")
+    saturated = nan = 0
+    for (g, m, h), d, mo in zip(leaves, ds, mos):
         want = sophia_update_plain(g, m, h)
         saturated += int((want[0].abs() == 0.05).sum())
-        for name, gv, wv in zip(("d", "m"), got, want):
-            err = (gv - wv).abs()
-            worst = max(worst, float(err.max()))
-            if bool((err > 1e-6 * wv.abs().clamp(min=1.0)).any()):
-                raise AssertionError(f"sophia_update {name} at {shape}: "
-                                     f"max err {float(err.max()):.3e}")
-    log(f"sophia_update vs plain on {len(stacked_shapes)} leaves: max |err| "
-        f"{worst:.3e} (bound 1e-6 max(1,|x|)); {saturated} clipped entries")
-    return worst
+        nan += int(torch.isnan(want[0]).sum())
+        single = sophia_update(g, m, h)
+        for form, got in (("grouped", (d, mo)), ("single", single)):
+            for name, gv, wv in zip(("d", "m"), got, want):
+                bad = bits_differ(gv, wv)
+                if bad:
+                    raise AssertionError(
+                        f"sophia_update ({form}) {name} at {tuple(g.shape)}: "
+                        f"{bad} values differ from the plain version")
+    log(f"sophia_update vs plain on {len(leaves)} leaves, grouped (one "
+        f"launch) and one leaf a launch: d and m' bitwise equal; "
+        f"{saturated} clipped entries, {nan} NaN (NaN/inf in h and g)")
+    return 0.0
 
 
 def tied_rows(rows, n, dev, gen, block=128):
@@ -385,31 +428,46 @@ def check_quantize(stacked_shapes, dev, gen):
 
 
 def check_dequant_accumulate(stacked_shapes, dev, gen):
-    """Kernel vs plain on every leaf: within 4 B u sum_i |w_i s_i q_i|."""
+    """Kernel vs plain on every leaf, in one grouped launch and one leaf a
+    launch: within 4 B u sum_i |w_i s_i q_i|."""
     from repro_torch.kernels.fused_agg.kernel import (
-        dequant_accumulate, dequant_accumulate_plain,
+        dequant_accumulate, dequant_accumulate_group,
+        dequant_accumulate_plain,
     )
     from repro_torch.kernels.qblock.kernel import quantize
     worst, worst_ratio = 0.0, 0.0
+    by_clients = {}
     for shape in stacked_shapes:
         b, n = shape[0], math.prod(shape[1:])
-        q, s = quantize(torch.randn((b, n), generator=gen, device=dev))
+        by_clients.setdefault(b, []).append(
+            quantize(torch.randn((b, n), generator=gen, device=dev)))
+    for b, coded in by_clients.items():
         w = torch.rand(b, generator=gen, device=dev) + 0.2
-        got = dequant_accumulate(q, s, w)
-        want = dequant_accumulate_plain(q, s, w)
-        mag = ((w[:, None] * s).repeat_interleave(128, dim=1)[:, :n].abs()
-               * q.float().abs()).sum(0)
-        err = (got - want).abs()
-        ratio = float((err / (4 * b * U * mag + 1e-30)).max())
-        worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio,
-                                                               ratio)
-        if ratio > 1.0:
-            raise AssertionError(f"dequant_accumulate at {shape}: max err "
-                                 f"{float(err.max()):.3e}, err/bound "
-                                 f"{ratio:.3f}")
-    log(f"dequant_accumulate vs plain on {len(stacked_shapes)} leaves: max "
-        f"|err| {worst:.3e}, max err/bound {worst_ratio:.3f} (bound 4Bu "
-        "sum|w s q|)")
+        before = dequant_accumulate.launches
+        grouped = dequant_accumulate_group(*zip(*coded), w)
+        if dequant_accumulate.launches != before + 1:
+            raise AssertionError(
+                f"one group of {len(coded)} leaves took "
+                f"{dequant_accumulate.launches - before} launches")
+        for (q, s), got_g in zip(coded, grouped):
+            n = q.shape[1]
+            want = dequant_accumulate_plain(q, s, w)
+            mag = ((w[:, None] * s).repeat_interleave(128, dim=1)[:, :n]
+                   .abs() * q.float().abs()).sum(0)
+            for form, got in (("grouped", got_g),
+                              ("single", dequant_accumulate(q, s, w))):
+                err = (got - want).abs()
+                ratio = float((err / (4 * b * U * mag + 1e-30)).max())
+                worst = max(worst, float(err.max()))
+                worst_ratio = max(worst_ratio, ratio)
+                if ratio > 1.0:
+                    raise AssertionError(
+                        f"dequant_accumulate ({form}) at (B={b}, n={n}): max "
+                        f"err {float(err.max()):.3e}, err/bound {ratio:.3f}")
+    log(f"dequant_accumulate vs plain on {len(stacked_shapes)} leaves, "
+        f"grouped ({len(by_clients)} launches, one per cohort size) and one "
+        f"leaf a launch: max |err| {worst:.3e}, max err/bound "
+        f"{worst_ratio:.3f} (bound 4Bu sum|w s q|)")
     return worst
 
 
@@ -513,32 +571,39 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
     """The Sophia and qblock kernels' work on ViT-Tiny at S=5 (all 127
     leaves): ``sophia_update`` for one local step, ``quantize`` and
     ``dequant_accumulate`` for one upload channel of one round.  Timed
-    as ``time_kernels`` times the SOAP kernels.  No single PyTorch call
+    as ``time_kernels`` times the SOAP kernels: ``sophia_update`` and
+    ``dequant_accumulate`` as the path runs them (one grouped launch:
+    ``ms``, ``device_ms``) and one leaf a launch (127 launches:
+    ``single_ms``, ``single_device_ms``).  No single PyTorch call
     computes any of the three functions, so there is no library time."""
     from repro_torch.kernels.fused_agg.kernel import (
-        dequant_accumulate, dequant_accumulate_plain,
+        dequant_accumulate, dequant_accumulate_group,
+        dequant_accumulate_plain,
     )
     from repro_torch.kernels.qblock.kernel import (
         n_blocks, quantize, quantize_plain,
     )
     from repro_torch.kernels.sophia_update.kernel import (
-        sophia_update, sophia_update_plain,
+        sophia_update, sophia_update_group, sophia_update_plain,
     )
     shapes = [(S_VIT, *shp) for shp in vit_shapes]
     soph = [sophia_inputs(shp, dev, gen) for shp in shapes]
+    soph_cols = tuple(zip(*soph))
     rows = [torch.randn((S_VIT, math.prod(shp)), generator=gen, device=dev)
             * 1e-3 for shp in vit_shapes]
     coded = [quantize(x) for x in rows]
+    coded_cols = tuple(zip(*coded))
     w = torch.ones(S_VIT, device=dev)
     elems = sum(x.numel() for x in rows)
     scales = sum(S_VIT * n_blocks(x.shape[1], 128) for x in rows)
     n_out = elems // S_VIT
     work = {
         "sophia_update": dict(
-            fns=[lambda f=f: [f(*x) for x in soph]
-                 for f in (sophia_update, sophia_update_plain)],
+            fns=[lambda: sophia_update_group(*soph_cols),
+                 lambda: [sophia_update_plain(*x) for x in soph],
+                 lambda: [sophia_update(*x) for x in soph]],
             bytes=20 * elems, flops=6 * elems,
-            what=f"one local step, {len(soph)} launches, "
+            what=f"one local step, {len(soph)} leaves, "
                  f"{elems / 1e6:.2f} M elements"),
         "quantize": dict(
             fns=[lambda f=f: [f(x) for x in rows]
@@ -547,11 +612,13 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
             what=f"one channel of one round, {len(rows)} launches, "
                  f"{elems / 1e6:.2f} M elements"),
         "dequant_accumulate": dict(
-            fns=[lambda f=f: [f(q, s, w) for q, s in coded]
-                 for f in (dequant_accumulate, dequant_accumulate_plain)],
+            fns=[lambda: dequant_accumulate_group(*coded_cols, w),
+                 lambda: [dequant_accumulate_plain(q, s, w)
+                          for q, s in coded],
+                 lambda: [dequant_accumulate(q, s, w) for q, s in coded]],
             bytes=elems + 4 * scales + 4 * S_VIT + 4 * n_out,
             flops=2 * elems + scales,
-            what=f"one channel of one round, {len(coded)} launches, "
+            what=f"one channel of one round, {len(coded)} leaves, "
                  f"{elems / 1e6:.2f} M int8 values from {S_VIT} clients"),
     }
     out = {}
@@ -566,9 +633,14 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
             ms=t[0], plain_ms=t[1], library_ms=None, bound_ms=bound,
             bound_by=by, device_ms=d[0], plain_device_ms=d[1],
             library_device_ms=None)
+        single = ""
+        if len(t) > 2:
+            out[name].update(single_ms=t[2], single_device_ms=d[2])
+            single = (f", one leaf a launch {t[2]:.3f} ms ({d[2]:.3f} ms "
+                      "device)")
         log(f"{name}, {x['what']} ({x['bytes'] / 1e6:.1f} MB): kernel "
             f"{t[0]:.3f} ms, plain {t[1]:.3f} ms; device time {d[0]:.3f} / "
-            f"{d[1]:.3f} ms; bound {bound:.3f} ms ({by})")
+            f"{d[1]:.3f} ms; bound {bound:.3f} ms ({by}){single}")
     return out
 
 
@@ -690,13 +762,16 @@ def main_paths(vit_shapes, cnn_shapes):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
-        if "matmul_fused" in expect:
-            # SOAP's step is 5 grouped launches: the EMAs, 4 rotations
-            want = 5 * exp.fed.local_steps * exp.fed.rounds
-            if launches["matmul_fused"] != want:
-                raise AssertionError(
-                    f"{label}: {launches['matmul_fused']} matmul_fused "
-                    f"launches, want {want} (5 per local step)")
+        # SOAP's step is 5 grouped launches (the EMAs, 4 rotations),
+        # Sophia's one; a qblock round flushes 3 times (delta, theta twice)
+        steps = exp.fed.local_steps * exp.fed.rounds
+        for name, want, what in (
+                ("matmul_fused", 5 * steps, "5 per local step"),
+                ("sophia_update", steps, "1 per local step"),
+                ("dequant_accumulate", 3 * exp.fed.rounds, "3 per round")):
+            if name in expect and launches[name] != want:
+                raise AssertionError(f"{label}: {launches[name]} {name} "
+                                     f"launches, want {want} ({what})")
         return hist
 
     # SOAP
@@ -784,8 +859,8 @@ def main():
             source="src/repro_torch/kernels/csrc/matmul_fused.cu",
             replaces="src/repro/kernels/ns_ortho/kernel.py:61"),
         "sophia_update": dict(
-            route="triton",
-            source="src/repro_torch/kernels/sophia_update/kernel.py",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/sophia_update.cu",
             replaces="src/repro/kernels/sophia_update/kernel.py:31"),
         "quantize": dict(
             route="cuda", source="src/repro_torch/kernels/csrc/qblock.cu",

@@ -8,8 +8,9 @@ scale/2.  The codec sees the cohort-stacked leaf as ``(S, n)`` and the
 ``quantize`` kernel (``kernels/qblock``) cuts each client's row into
 blocks of its own, so the message is exactly the reference's ``vmap`` of
 one client's encode.  Server-side the codec never decodes a stacked
-cohort: ``accumulate_leaf`` runs the fused dequantize-accumulate kernel
-(``kernels/fused_agg``) straight into the weighted sum, and
+cohort: ``accumulate`` runs the fused dequantize-accumulate kernel
+(``kernels/fused_agg``) straight into the weighted sums, one grouped
+launch for every leaf of the tree (``accumulate_leaf`` for one), and
 ``sq_norms_leaf`` takes s^2 * sum(q^2) per block in plain PyTorch, as the
 reference computes it in ``jnp``.  ``decode_leaf`` (the error-feedback
 residual, tests) is plain PyTorch, as the reference's ``dequantize`` is.
@@ -22,8 +23,11 @@ import torch.nn.functional as F
 from repro_torch.core.transport.base import (
     Codec, LeafMsg, TransportConfig, register_codec,
 )
-from repro_torch.kernels.fused_agg.kernel import dequant_accumulate
+from repro_torch.kernels.fused_agg.kernel import (
+    dequant_accumulate, dequant_accumulate_group,
+)
 from repro_torch.kernels.qblock.kernel import dequantize, quantize
+from repro_torch.utils.tree import tree_flatten_with_path, tree_unflatten
 
 
 class QBlock(Codec):
@@ -48,6 +52,21 @@ class QBlock(Codec):
         out = dequant_accumulate(msgs.parts["q"], msgs.parts["scale"],
                                  weights, block=msgs.extra)
         return out.reshape(msgs.shape[1:])
+
+    def accumulate(self, msgs, weights):
+        """The tree of sum_i w_i * decode(msg_i): one grouped kernel call.
+        A message frames every leaf with the one block it was encoded
+        with."""
+        flat = [m for _, m in tree_flatten_with_path(msgs.leaves)]
+        blocks = {m.extra for m in flat}
+        if len(blocks) > 1:
+            raise ValueError(f"a qblock message frames its leaves with one "
+                             f"block, got {sorted(blocks)}")
+        outs = dequant_accumulate_group(
+            [m.parts["q"] for m in flat], [m.parts["scale"] for m in flat],
+            weights, block=blocks.pop() if blocks else self.block)
+        return tree_unflatten(msgs.leaves, [
+            out.reshape(m.shape[1:]) for m, out in zip(flat, outs)])
 
     def sq_norms_leaf(self, msgs: LeafMsg):
         # ||q * s||^2 per block = s^2 * sum(q^2): the scales come out of

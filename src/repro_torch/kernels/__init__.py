@@ -5,9 +5,13 @@ version:
                           (csrc/matmul_fused.cu: one grouped launch)
   soap_rotate/kernel.py   adam_moments  Triton
   soap_rotate/ops.py      soap_rotated_update, composed from the two
-  sophia_update/kernel.py sophia_update  Triton
+  sophia_update/kernel.py sophia_update, sophia_update_group  CUDA C++
+                          (csrc/sophia_update.cu: one grouped launch)
   qblock/kernel.py        quantize      CUDA C++ (csrc/qblock.cu)
-  fused_agg/kernel.py     dequant_accumulate  CUDA C++ (csrc/fused_agg.cu)
+  fused_agg/kernel.py     dequant_accumulate, dequant_accumulate_group
+                          CUDA C++ (csrc/fused_agg.cu: one grouped launch)
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+The grouped kernels take a table of leaves by value (``grouped.py``,
+``csrc/grouped.cuh``).  Each wrapper counts its launches in
+``<wrapper>.launches``.
 """

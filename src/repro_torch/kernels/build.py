@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library that the wrappers
 bind with ``ctypes``; nothing includes PyTorch's headers, so a build takes
 seconds.  Libraries land in ``build/repro_torch_kernels/`` at the root of
-the checkout (gitignored), named by a hash of the source and the flags: a
-changed source builds anew, an unchanged one is reused.  ``defines``
+the checkout (gitignored), named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags: a changed source builds anew, an
+unchanged one is reused.  ``defines``
 build a variant of a source (``-D`` macros, e.g. ``matmul_fused.cu``'s
 tile shape for ``tools/tune_matmul_tiles.py``); the wrappers load the
 plain build.  The build happens
@@ -45,7 +46,8 @@ def _flags(defines=()) -> tuple:
 
 def library_path(source: str, defines=()) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 

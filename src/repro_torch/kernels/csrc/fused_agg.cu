@@ -1,92 +1,172 @@
-// dequant_accumulate: the qblock flush, sum_i w_i * scale_{i,b} * q_{i,b}.
+// dequant_accumulate: the qblock flush, sum_i w_i * scale_{i,b} * q_{i,b},
+// over a group of leaves in one launch.
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/fused_agg/kernel.py::dequant_accumulate (a (rows, B)
 // grid with the client axis innermost, the f32 output tile resident in
 // VMEM while every client's int8 blocks stream through it once).  The
-// server's qblock flush reduces a cohort's encoded leaf straight into the
-// weighted sum with it; no decoded per-client tensor is formed.
+// server's qblock flush reduces a cohort's encoded tree straight into the
+// weighted sums with one launch; no decoded per-client tensor is formed.
 //
-// Inputs: q (B, n) int8, the wire's values (row stride n, no padding);
-// scale (B, nb) f32 with nb = ceil(n / block); w (B,) f32.  Output: (n,)
-// f32, the leaf's sum itself (no pad, no trim copy).
+// Inputs per leaf: q (B, n) int8, the wire's values (row stride n, no
+// padding); scale (B, nb) f32 with nb = ceil(n / block).  Shared by the
+// group: w (B,) f32, B and block.  Output per leaf: (n,) f32, the leaf's
+// sum itself (no pad, no trim copy).
 //
-// Bound on an H100: memory — B*n int8 reads plus 4n bytes written (the
+// Bound on an H100: memory -- B*n int8 reads plus 4n bytes written (the
 // B*nb scales are noise), a multiply-add per byte read.
 //
-// Design: the TPU grid's sequential client axis becomes a loop inside the
-// thread.  Each thread owns 4 consecutive output elements (always in one
-// quant block: block is a multiple of 4), keeps their sums in registers,
-// and walks the B clients innermost: one char4 load per client when rows
-// are 4-byte aligned (n % 4 == 0), else four byte loads, and one
-// multiplier w_i * scale_{i,b} per client (an f32 product, rounded as the
-// reference rounds it).  Each output is written once, so there is no
-// carry across blocks and no atomics.
+// Design: the TPU grid's sequential client axis is a loop inside the
+// thread.  A work item is ELEMS = 4 consecutive outputs of one leaf (always
+// in one quant block: block is a multiple of 4); its thread keeps their
+// sums in registers and walks the B clients innermost, one 4-byte load
+// and one multiplier w_i * scale_{i,b} (an f32 product, rounded as the
+// reference rounds it) per client, and writes each output once: no carry
+// across blocks, no atomics.  One launch covers every leaf of the tree:
+//  * a table of per-leaf records (q, scale, out, n, nb, first work item,
+//    a flag) is passed by value as the kernel's __grid_constant__
+//    parameter (grouped.cuh), up to MAX_LEAVES a launch;
+//  * persistent blocks, as many as are resident on the card, walk the
+//    global work-item index; a thread finds its item's leaf by binary
+//    search over the items' starts, staged in shared memory per block;
+//  * a leaf whose rows are 4-byte aligned (q aligned, n % 4 == 0) and
+//    whose output is 16-byte aligned takes 4-byte loads and float4 stores
+//    (flag VEC, set on the host); any other takes byte loads and scalar
+//    stores with its ragged tail masked.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grouped.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int ELEMS = 4;   // outputs per work item (one thread)
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-dequant_accumulate_kernel(const int8_t* __restrict__ q,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ w,
-                          float* __restrict__ out, int clients, int64_t n,
-                          int64_t nb, int block) {
-  const int64_t e0 = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * 4;
-  if (e0 >= n) return;
-  const int64_t b = e0 / block;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < clients; ++i) {
-    const float ws = w[i] * scale[(int64_t)i * nb + b];
-    const int8_t* row = q + (int64_t)i * n;
-    float v[4];
-    if (VEC) {
-      const char4 c = *reinterpret_cast<const char4*>(row + e0);
-      v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
+enum : int { VEC = 1 };   // flags, set per leaf on the host
+
+struct Leaf {
+  const int8_t* q;
+  const float* scale;
+  float* out;
+  int64_t n, nb;
+  int item_start;
+  int flags;
+};
+static_assert(sizeof(Leaf) == 48, "Leaf layout is mirrored on the host");
+
+constexpr int HEADER_BYTES = 32;
+constexpr int MAX_LEAVES =
+    (grouped::PARAM_LIMIT - HEADER_BYTES) / (int)sizeof(Leaf);   // 681
+
+struct Group {
+  int num_leaves, total_items;
+  const float* w;
+  int clients, block;
+  int pad0, pad1;
+  Leaf leaf[MAX_LEAVES];
+};
+static_assert(sizeof(Group) <= grouped::PARAM_LIMIT,
+              "the table must fit the launch");
+
+template <bool VEC_>
+__device__ __forceinline__ void accumulate(const Group& p, const Leaf& L,
+                                           int64_t e0) {
+  const int64_t b = e0 / p.block;
+  float acc[ELEMS];
+#pragma unroll
+  for (int j = 0; j < ELEMS; ++j) acc[j] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < p.clients; ++i) {
+    const float ws = __ldg(p.w + i) * __ldg(L.scale + i * L.nb + b);
+    const int8_t* row = L.q + i * L.n;
+    int8_t v[ELEMS];
+    if (VEC_) {
+      const int raw = __ldg(reinterpret_cast<const int*>(row + e0));
+#pragma unroll
+      for (int j = 0; j < ELEMS; ++j)
+        v[j] = reinterpret_cast<const int8_t*>(&raw)[j];
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = (e0 + j < n) ? row[e0 + j] : 0;
+      for (int j = 0; j < ELEMS; ++j)
+        v[j] = (e0 + j < L.n) ? row[e0 + j] : 0;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] += ws * v[j];
+    for (int j = 0; j < ELEMS; ++j) acc[j] += ws * (float)v[j];
   }
-  if (VEC) {
-    *reinterpret_cast<float4*>(out + e0) =
+  if (VEC_) {
+    *reinterpret_cast<float4*>(L.out + e0) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (e0 + j < n) out[e0 + j] = acc[j];
+    for (int j = 0; j < ELEMS; ++j)
+      if (e0 + j < L.n) L.out[e0 + j] = acc[j];
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+dequant_accumulate_group_kernel(const __grid_constant__ Group p) {
+  __shared__ int starts[MAX_LEAVES];
+  for (int i = threadIdx.x; i < p.num_leaves; i += THREADS)
+    starts[i] = p.leaf[i].item_start;
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t it = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+       it < p.total_items; it += stride) {
+    const int li = grouped::find(starts, p.num_leaves, (int)it);
+    const Leaf& L = p.leaf[li];
+    const int64_t e0 = (it - starts[li]) * ELEMS;
+    if (L.flags & VEC)
+      accumulate<true>(p, L, e0);
+    else
+      accumulate<false>(p, L, e0);
+  }
+}
+
+int resident[grouped::MAX_DEVICES];   // persistent grid per device
+
 }  // namespace
 
-// C entry point bound with ctypes.  q is contiguous (clients, n) int8,
-// scale contiguous (clients, nb) f32, w (clients,) f32, out a fresh (n,)
-// f32 buffer; block must be a multiple of 4.  Launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() so a refused launch
+// The compiled configuration, for the host's table builder and checks:
+// THREADS, ELEMS, MAX_LEAVES, sizeof(Leaf), sizeof(Group).
+extern "C" void repro_dequant_accumulate_config(int* cfg) {
+  const int v[] = {THREADS, ELEMS, MAX_LEAVES, (int)sizeof(Leaf),
+                   (int)sizeof(Group)};
+  for (int i = 0; i < 5; ++i) cfg[i] = v[i];
+}
+
+// Blocks resident on the current device (the persistent grid), or a
+// negative CUDA error code.
+extern "C" int repro_dequant_accumulate_resident_blocks() {
+  int blocks = 0;
+  const cudaError_t err = grouped::resident_blocks(
+      dequant_accumulate_group_kernel, THREADS, resident, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// C entry point bound with ctypes.  `group` points to a host Group (the
+// table, copied into the launch's parameters at the call); every out is a
+// fresh buffer and block a multiple of ELEMS.  Launches on `stream`, does
+// not synchronise, and returns the launch's CUDA error so a refused launch
 // raises in the caller.
-extern "C" int repro_dequant_accumulate(const int8_t* q, const float* scale,
-                                        const float* w, float* out,
-                                        int clients, int64_t n, int block,
-                                        void* stream) {
-  if (block % 4) return (int)cudaErrorInvalidValue;
-  const int64_t nb = (n + block - 1) / block;
-  const int64_t grid = ((n + 3) / 4 + THREADS - 1) / THREADS;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool vec = (n % 4 == 0) && ((uintptr_t)q % 4 == 0)
-                   && ((uintptr_t)out % 16 == 0);
-  if (vec)
-    dequant_accumulate_kernel<true><<<(unsigned)grid, THREADS, 0, s>>>(
-        q, scale, w, out, clients, n, nb, block);
-  else
-    dequant_accumulate_kernel<false><<<(unsigned)grid, THREADS, 0, s>>>(
-        q, scale, w, out, clients, n, nb, block);
+extern "C" int repro_dequant_accumulate_group(const void* group,
+                                              void* stream) {
+  int blocks = 0;
+  cudaError_t err = grouped::resident_blocks(dequant_accumulate_group_kernel,
+                                             THREADS, resident, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const Group* p = static_cast<const Group*>(group);
+  if (p->num_leaves < 1 || p->num_leaves > MAX_LEAVES ||
+      p->total_items < 0 || p->clients < 0 || p->block < ELEMS ||
+      p->block % ELEMS)
+    return (int)cudaErrorInvalidValue;
+  const int64_t want = ((int64_t)p->total_items + THREADS - 1) / THREADS;
+  const int grid = want < blocks ? (int)want : blocks;
+  if (grid <= 0) return 0;
+  void* args[] = {const_cast<void*>(group)};
+  err = cudaLaunchKernel((const void*)dequant_accumulate_group_kernel,
+                         dim3(grid), dim3(THREADS), args, 0,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grouped import PARAM_LIMIT, arena_layout, arena_views
 
 SOURCE = "matmul_fused.cu"
 
@@ -49,11 +50,9 @@ PROBLEM = np.dtype([
     ("tiles_m", "<i4"), ("tiles_n", "<i4"), ("tile_start", "<i4"),
     ("flags", "<i4"), ("alpha", "<f4"), ("beta", "<f4")])
 HEADER_BYTES = 16            # num_problems, total_tiles, two pad ints
-PARAM_LIMIT = 32764          # bytes of kernel parameters on Hopper (CUDA >= 12.1)
 MAX_PROBLEMS = (PARAM_LIMIT - HEADER_BYTES) // PROBLEM.itemsize   # 227
 TABLE_BYTES = HEADER_BYTES + MAX_PROBLEMS * PROBLEM.itemsize
 TILE = (128, 64)             # the default build's (BM, BN)
-OUT_ALIGN = 32               # floats: every output starts 128-byte aligned
 A_KC, B_KC, A_VEC, B_VEC, O_VEC = 1, 2, 4, 8, 16
 
 
@@ -188,16 +187,6 @@ def group_tables(rows, tile=TILE, max_problems: int = MAX_PROBLEMS):
     return out
 
 
-def arena_offsets(numels, align: int = OUT_ALIGN):
-    """(offset of each output, arena size) in floats, each output starting
-    ``align``-aligned so the next phase reads it with 16-byte copies."""
-    offsets, total = [], 0
-    for n in numels:
-        offsets.append(total)
-        total += -(-n // align) * align
-    return offsets, total
-
-
 class KernelLibrary:
     """A loaded build of ``matmul_fused.cu``, checked against the host's
     record layout."""
@@ -253,11 +242,10 @@ def matmul_fused_group(problems, library: KernelLibrary | None = None):
            if t is not None):
         raise TypeError("the CUDA matmul_fused kernel takes float32 only")
     lib = library or kernel_library()
-    shapes = [(*p[0].shape[:-1], p[1].shape[-1]) for p in problems]
-    offsets, total = arena_offsets(math.prod(s) for s in shapes)
+    shapes = tuple((*p[0].shape[:-1], p[1].shape[-1]) for p in problems)
+    _, _, total, runs = arena_layout(shapes)
     arena = torch.empty(total, device=dev, dtype=torch.float32)
-    outs = [arena[o:o + math.prod(s)].view(s)
-            for o, s in zip(offsets, shapes)]
+    outs, = arena_views(arena, runs, len(problems))
     # held until the launches are enqueued: a copy made by _mergeable must
     # not return to the allocator before the kernel that reads it
     operands = [tuple(None if x is None else _mergeable(x) for x in p[:3])

@@ -9,27 +9,19 @@ refresh the curvature (every ``hessian_freq`` steps), where
 estimate and ``h`` is left as it is, which is what the reference's gated
 ``where`` computes.  The gated EMA ``h' = b2 h + (1-b2) max(est, 0)``
 stays outside the kernel, as in the reference; the momentum and the
-clipped direction ``clip(m' / max(h', eps), ±rho)`` come from the
-``sophia_update`` kernel on every leaf, and weight decay is added after
-it.  Trees may carry ``lead`` leading batch dims (the cohort-stacked
-client axis); every operation is elementwise, so they need no care.
+clipped direction ``clip(m' / max(h', eps), ±rho)`` of every leaf come
+from one grouped ``sophia_update`` launch a step, and weight decay is
+added after it.  Trees may carry ``lead`` leading batch dims (the
+cohort-stacked client axis); every operation is elementwise, so they need
+no care.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
-from repro_torch.kernels.sophia_update.kernel import sophia_update
+from repro_torch.kernels.sophia_update.kernel import sophia_update_group
 from repro_torch.optim.api import LocalOptimizer
-from repro_torch.utils.tree import tree_map
-
-
-@dataclasses.dataclass(frozen=True)
-class _Step:
-    """One leaf's kernel output (a tree leaf, unlike a tuple)."""
-    d: torch.Tensor
-    m: torch.Tensor
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def make(b1: float = 0.9, b2: float = 0.99, eps: float = 1e-12,
@@ -51,12 +43,11 @@ def make(b1: float = 0.9, b2: float = 0.99, eps: float = 1e-12,
             h = tree_map(
                 lambda hh, est: b2 * hh + (1 - b2) * torch.clamp(
                     est.to(torch.float32), min=0.0), h, extras["h_est"])
-        out = tree_map(
-            lambda g, mm, hh: _Step(*sophia_update(g, mm, hh, b1=b1,
-                                                   rho=rho, eps=eps)),
-            grads, state["m"], h)
-        direction = tree_map(lambda o: o.d, out)
-        m = tree_map(lambda o: o.m, out)
+        ds, ms = sophia_update_group(
+            tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(h),
+            b1=b1, rho=rho, eps=eps)
+        direction = tree_unflatten(grads, ds)
+        m = tree_unflatten(grads, ms)
         if weight_decay:
             direction = tree_map(
                 lambda d, p: d + weight_decay * p.to(torch.float32),

@@ -66,6 +66,13 @@ def tree_map_with_path(fn, tree, path=()):
                       for i, v in enumerate(tree))
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves`` order) in
+    place of its leaves."""
+    by_path = dict(zip((p for p, _ in tree_flatten_with_path(tree)), leaves))
+    return tree_map_with_path(lambda p, _: by_path[p], tree)
+
+
 def path_str(path) -> str:
     return "/".join(str(k) for k in path)
 

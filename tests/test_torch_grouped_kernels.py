@@ -1,0 +1,446 @@
+"""The port's grouped kernels (one launch over a list of leaves) on the
+CPU: the numpy tables each wrapper hands its CUDA kernel by value, the
+arena its outputs are views into, and the grouped entry points'
+plain path — ``sophia_update_group`` and ``dequant_accumulate_group``
+against the per-leaf plain versions, the JAX package's ``ref.py`` and the
+Pallas kernels in interpret mode — and their callers, Sophia's step and
+``QBlock.accumulate``.  tests/test_torch_kernels_cuda.py holds the CUDA
+kernels against the same plain versions on the card.
+
+Tolerances:
+  * sophia_update (group and per leaf): bitwise equal to the per-leaf
+    plain version (the same PyTorch ops); 1e-6 max(1, |x|) against
+    ``ref.py`` and the Pallas kernel (the same f32 expression under XLA);
+    NaN where the reference gives NaN — ``jnp.maximum`` and ``jnp.clip``
+    carry NaN through.
+  * dequant_accumulate (group) and ``QBlock.accumulate``: bitwise equal to
+    the per-leaf plain version; 4 B u sum_i |w_i s_i q_i| per element
+    against the reference (u = 2^-24: B f32 products summed in another
+    order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import transport as JT
+from repro.kernels.fused_agg import ref as jax_fa_ref
+from repro.kernels.fused_agg.kernel import (
+    dequant_accumulate as jax_dequant_pallas,
+)
+from repro.kernels.sophia_update import ref as jax_sophia_ref
+from repro.kernels.sophia_update.kernel import (
+    sophia_update as jax_sophia_pallas,
+)
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import transport as T
+from repro_torch.core.transport import qblock as qblock_codec
+from repro_torch.kernels import grouped
+from repro_torch.kernels.fused_agg import kernel as fak
+from repro_torch.kernels.fused_agg.kernel import (
+    dequant_accumulate, dequant_accumulate_group, dequant_accumulate_plain,
+)
+from repro_torch.kernels.qblock.kernel import quantize_plain
+from repro_torch.kernels.sophia_update import kernel as suk
+from repro_torch.kernels.sophia_update.kernel import (
+    sophia_update, sophia_update_group, sophia_update_plain,
+)
+from repro_torch.optim import sophia
+from repro_torch.utils.tree import (
+    tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten,
+)
+
+U = 2.0 ** -24
+KW = dict(b1=0.9, rho=0.05, eps=1e-12)
+# per-client leaf shapes of a narrow ViT block and of the CNN, stacked
+# over a cohort of 3: matrices, vectors, a 4-D conv kernel, ragged sizes
+LEAF_SHAPES = [(3, 16, 48), (3, 48), (3, 16, 16), (3, 64, 16), (3, 16),
+               (3, 3, 3, 3, 8), (3, 8), (3, 1, 1, 8, 16), (3, 10),
+               (3, 7, 9)]
+
+
+# ------------------------------------------------------------- the tables
+
+def _fake_ptrs(n, width, base=0x7F0000000000, step=1 << 20):
+    return (np.uint64(base) + np.arange(n * width, dtype=np.uint64)
+            * np.uint64(step)).reshape(n, width)
+
+
+def test_table_capacities_fit_the_launch_parameters():
+    assert suk.LEAF.itemsize == 56 and suk.HEADER.itemsize == 32
+    assert fak.LEAF.itemsize == 48 and fak.HEADER.itemsize == 32
+    assert suk.MAX_LEAVES == (32764 - 32) // 56 == 584
+    assert fak.MAX_LEAVES == (32764 - 32) // 48 == 681
+    for mod in (suk, fak):
+        assert mod.TABLE_BYTES <= grouped.PARAM_LIMIT
+        assert mod.TABLE_BYTES + mod.LEAF.itemsize > grouped.PARAM_LIMIT
+
+
+def test_sophia_tables_records_chunk_prefixes_and_header():
+    numels = np.array([4096, 1, 0, 12288 + 3, 4100, 8])
+    ptrs = _fake_ptrs(len(numels), 5)
+    ptrs[4, 2] += np.uint64(4)          # h misaligned: scalar accesses
+    (table, idx), = suk.leaf_tables(ptrs, numels, **KW)
+    assert table.nbytes == suk.TABLE_BYTES
+    assert idx.tolist() == [0, 1, 3, 4, 5]          # the empty leaf dropped
+    head = table[:suk.HEADER.itemsize].view(suk.HEADER)[0]
+    chunks = [1, 1, 4, 2, 1]
+    assert (head["num_leaves"], head["total_chunks"]) == (5, sum(chunks))
+    assert head["b1"] == np.float32(0.9)
+    assert head["omb1"] == np.float32(1 - 0.9)   # the plain version's constant
+    assert (head["rho"], head["eps"]) == (np.float32(0.05), np.float32(1e-12))
+    recs = table[suk.HEADER.itemsize:].view(suk.LEAF)
+    assert recs["chunk_start"][:5].tolist() == list(np.cumsum(chunks)
+                                                    - chunks)
+    for j, name in enumerate(("g", "m", "h", "d", "m_out")):
+        assert recs[name][:5].tolist() == ptrs[idx, j].tolist()
+    assert recs["numel"][:5].tolist() == numels[idx].tolist()
+    # numel % 4 and 16-byte alignment of all five pointers decide the flag
+    assert recs["flags"][:5].tolist() == [1, 0, 0, 0, 1]
+    assert not table[suk.HEADER.itemsize + 5 * suk.LEAF.itemsize:].any()
+
+
+def test_sophia_tables_split_at_the_record_limit():
+    n = 2 * suk.MAX_LEAVES + 7
+    numels = np.full(n, 5000)
+    numels[3] = 0
+    tables = suk.leaf_tables(_fake_ptrs(n, 5), numels, **KW)
+    assert [len(i) for _, i in tables] == [suk.MAX_LEAVES, suk.MAX_LEAVES, 6]
+    assert sorted(i for _, idx in tables for i in idx) == [
+        i for i in range(n) if i != 3]
+    small = suk.leaf_tables(_fake_ptrs(7, 5), np.full(7, 9000), **KW,
+                            capacity=3)
+    assert [len(i) for _, i in small] == [3, 3, 1]
+    for table, idx in small:
+        head = table[:suk.HEADER.itemsize].view(suk.HEADER)[0]
+        recs = table[suk.HEADER.itemsize:].view(suk.LEAF)
+        assert head["num_leaves"] == len(idx)
+        assert head["total_chunks"] == 3 * len(idx)
+        assert recs["chunk_start"][:len(idx)].tolist() == [0, 3, 6][:len(idx)]
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_dequant_tables_records_item_prefixes_and_flags(block):
+    ns = np.array([768, 10, 0, 1000, 256, 48])
+    ptrs = _fake_ptrs(len(ns), 3)
+    ptrs[4, 0] += np.uint64(4)      # q aligned to 4 bytes but not to 16
+    ptrs[5, 2] += np.uint64(8)      # out not 16-byte aligned
+    (table, idx), = fak.leaf_tables(ptrs, ns, 0xABC0, 5, block)
+    assert table.nbytes == fak.TABLE_BYTES
+    assert idx.tolist() == [0, 1, 3, 4, 5]
+    head = table[:fak.HEADER.itemsize].view(fak.HEADER)[0]
+    items = [-(-n // 4) for n in ns[idx]]             # 4 outputs an item
+    assert (head["num_leaves"], head["total_items"]) == (5, sum(items))
+    assert (head["w"], head["clients"], head["block"]) == (0xABC0, 5, block)
+    recs = table[fak.HEADER.itemsize:].view(fak.LEAF)
+    assert recs["item_start"][:5].tolist() == list(np.cumsum(items) - items)
+    assert recs["nb"][:5].tolist() == [-(-n // block) for n in ns[idx]]
+    for j, name in enumerate(("q", "scale", "out")):
+        assert recs[name][:5].tolist() == ptrs[idx, j].tolist()
+    # 10 alone does not fill whole items; leaf 4's q is aligned for the
+    # kernel's 4-byte loads, leaf 5's out not for float4 stores
+    assert recs["flags"][:5].tolist() == [1, 0, 1, 1, 0]
+
+
+def test_dequant_tables_split_at_the_record_limit():
+    n = fak.MAX_LEAVES + 2
+    tables = fak.leaf_tables(_fake_ptrs(n, 3), np.full(n, 128), 0, 2, 128)
+    assert [len(i) for _, i in tables] == [fak.MAX_LEAVES, 2]
+    for table, idx in tables:
+        head = table[:fak.HEADER.itemsize].view(fak.HEADER)[0]
+        assert head["total_items"] == 32 * len(idx)
+
+
+def test_split_tables_refuses_a_32_bit_overflow():
+    header = np.zeros(1, suk.HEADER)
+    recs = np.zeros(2, suk.LEAF)
+    with pytest.raises(ValueError, match="32-bit"):
+        grouped.split_tables(header, recs, [2 ** 30, 2 ** 30],
+                             "chunk_start", 4)
+
+
+@pytest.mark.parametrize("copies", [1, 2])
+def test_arena_layout_groups_shapes_and_aligns_every_output(copies):
+    shapes = ((3, 16, 48), (3, 10), (3, 16, 48), (), (3, 10), (0, 4),
+              (3, 16, 48))
+    offsets, numels, total, _ = grouped.arena_layout(shapes, copies)
+    assert offsets.shape == (copies, len(shapes))
+    assert numels.tolist() == [2304, 30, 2304, 1, 30, 0, 2304]
+    assert (offsets % grouped.OUT_ALIGN == 0).all()
+    # outputs of one shape lie side by side, copy after copy
+    assert offsets[0, [0, 2, 6]].tolist() == [0, 2304, 4608]
+    assert offsets[0, 4] - offsets[0, 1] == 32
+    if copies == 2:
+        assert offsets[1, 0] == 3 * 2304
+    arena = torch.arange(total, dtype=torch.float32)
+    views = grouped.arena_views(arena, grouped.arena_layout(shapes,
+                                                            copies)[3],
+                                len(shapes), copies)
+    assert len(views) == copies
+    spans = []
+    for c in range(copies):
+        for v, s, o in zip(views[c], shapes, offsets[c]):
+            assert tuple(v.shape) == s and v.is_contiguous()
+            if v.numel():
+                assert float(v.reshape(-1)[0]) == o   # a view at its offset
+                spans.append((o, o + v.numel()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    end = spans[-1][1]
+    assert total == end + (-end) % grouped.OUT_ALIGN
+
+
+def test_tree_unflatten_inverts_tree_leaves():
+    tree = {"w": torch.zeros(2), "blocks": [{"b": torch.ones(3)},
+                                            {"a": torch.ones(1)}],
+            "head": None, "a": (torch.zeros(4),)}
+    leaves = [x + 1 for x in tree_leaves(tree)]
+    back = tree_unflatten(tree, leaves)
+    assert back["head"] is None
+    for got, want in zip(tree_leaves(back), leaves):
+        assert got is want
+
+
+# ---------------------------------------------------------- sophia_update
+
+def _sophia_leaves(seed, shapes=LEAF_SHAPES):
+    r = np.random.default_rng(seed)
+    out = []
+    for s in shapes:
+        g = r.standard_normal(s).astype(np.float32)
+        m = r.standard_normal(s).astype(np.float32)
+        h = np.abs(r.standard_normal(s)).astype(np.float32) * 50.0
+        flat = h.reshape(-1)
+        flat[::3] = 0.0                 # h = 0: the clip saturates
+        flat[1::7] = 1e-3
+        out.append((g, m, h))
+    return out
+
+
+def _assert_rel(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, what
+    assert np.all(np.abs(got - want) <= 1e-6 * np.maximum(1.0, np.abs(want))
+                  ), what
+
+
+def test_sophia_group_matches_per_leaf_plain_ref_and_pallas():
+    leaves = _sophia_leaves(0)
+    gs, ms, hs = ([torch.from_numpy(x[i]) for x in leaves] for i in range(3))
+    before = sophia_update.launches
+    ds, mos = sophia_update_group(gs, ms, hs, **KW)
+    assert sophia_update.launches == before          # the CPU's plain path
+    assert len(ds) == len(mos) == len(leaves)
+    for (g, m, h), d, mo in zip(leaves, ds, mos):
+        want_d, want_m = sophia_update_plain(*map(torch.from_numpy, (g, m, h)),
+                                             **KW)
+        assert d.dtype == mo.dtype == torch.float32
+        assert torch.equal(d, want_d) and torch.equal(mo, want_m)
+        assert torch.equal(d, sophia_update(*map(torch.from_numpy,
+                                                 (g, m, h)), **KW)[0])
+        ref = jax_sophia_ref.sophia_update(g, m, h, **KW)
+        pal = jax_sophia_pallas(jnp.asarray(g), jnp.asarray(m),
+                                jnp.asarray(h), interpret=True, **KW)
+        for want in (ref, pal):
+            _assert_rel(d, want[0], g.shape)
+            _assert_rel(mo, want[1], g.shape)
+        assert np.all(np.abs(d.numpy().reshape(-1)[::3]) == 0.05)
+
+
+@pytest.mark.parametrize("where", ["h", "g"])
+def test_sophia_group_nan_and_inf_follow_the_reference(where):
+    """NaN in h or g stays NaN in d (``jnp.maximum``/``jnp.clip`` carry it
+    through; a max that dropped NaN would map h = NaN to eps and d to
+    +-rho); +-inf saturates or vanishes as the reference's does."""
+    g, m, h = _sophia_leaves(1, [(3, 64)])[0]
+    x = h if where == "h" else g
+    x[0, :4] = [np.nan, np.inf, -np.inf, np.nan]
+    x[1, :2] = [np.inf, -np.inf]
+    t = [torch.from_numpy(v) for v in (g, m, h)]
+    (d,), (mo,) = sophia_update_group([t[0]], [t[1]], [t[2]], **KW)
+    gf = jnp.asarray(g)
+    m_ref = 0.9 * jnp.asarray(m) + (1.0 - 0.9) * gf
+    d_ref = jnp.clip(m_ref / jnp.maximum(jnp.asarray(h), 1e-12), -0.05, 0.05)
+    for got, want in ((d, d_ref), (mo, m_ref)):
+        got, want = got.numpy(), np.asarray(want)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        inf = np.isinf(want)
+        np.testing.assert_array_equal(got[inf], want[inf])
+        ok = np.isfinite(want)
+        _assert_rel(got[ok], want[ok], where)
+    assert np.isnan(d.numpy()[0, [0, 3]]).all()
+    if where == "h":      # +inf h: d = m'/inf = 0; -inf h: max(-inf, eps)
+        assert d.numpy()[0, 1] == 0.0
+        assert abs(d.numpy()[0, 2]) == np.float32(0.05)
+
+
+def test_sophia_group_validates_and_dispatches():
+    x = torch.ones(4)
+    assert sophia_update_group([], [], []) == ([], [])
+    with pytest.raises(ValueError, match="as many"):
+        sophia_update_group([x, x], [x], [x])
+    with pytest.raises(ValueError, match="shape"):
+        sophia_update_group([x, x], [x, x], [x, torch.ones(5)])
+    with pytest.raises(ValueError, match="several devices"):
+        sophia_update_group([x, torch.ones(4, device="meta")], [x, x], [x, x])
+    meta = torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sophia_update_group([meta], [meta], [meta])
+
+
+def _nested(shapes, lead=()):
+    return {"blocks": [{"w": (*lead, *shapes[0]), "b": (*lead, *shapes[1])},
+                       {"w": (*lead, *shapes[2])}],
+            "head": {"b": (*lead, *shapes[3])}}
+
+
+def test_sophia_step_makes_one_group_call_and_keeps_the_tree(monkeypatch):
+    """Sophia's update flattens the trees once, makes one grouped call and
+    rebuilds the gradients' structure: the result equals the per-leaf
+    plain version, leaf by leaf, on a nested tree."""
+    r = np.random.default_rng(5)
+    shapes = _nested([(12, 20), (20,), (3, 3, 2, 8), (5,)], lead=(2,))
+
+    def tree(scale=1.0):
+        return params_from_numpy(jax.tree.map(
+            lambda s: (r.standard_normal(s) * scale).astype(np.float32),
+            shapes, is_leaf=lambda x: isinstance(x, tuple)), "cpu")
+
+    params, grads = tree(), tree()
+    state = {"m": tree(), "h": tree_map(torch.abs, tree(10.0))}
+    calls = []
+    real = sophia.sophia_update_group
+
+    def spy(gs, ms, hs, **kw):
+        calls.append(len(gs))
+        return real(gs, ms, hs, **kw)
+
+    monkeypatch.setattr(sophia, "sophia_update_group", spy)
+    opt = sophia.make(weight_decay=0.1)
+    d, new = opt.update(grads, state, params, step=0, lead=1)
+    assert calls == [4]
+    assert tree_map(lambda x: x.shape, d) == tree_map(lambda x: x.shape,
+                                                      grads)
+    for g, m, h, p, got_d, got_m in zip(*map(tree_leaves, (
+            grads, state["m"], state["h"], params, d, new["m"]))):
+        want_d, want_m = sophia_update_plain(g, m, h)
+        assert torch.equal(got_m, want_m)
+        assert torch.equal(got_d, want_d + 0.1 * p)
+
+
+# ----------------------------------------------------- dequant_accumulate
+
+def _coded(shapes, block, seed):
+    r = np.random.default_rng(seed)
+    out = []
+    for s in shapes:
+        x = (r.standard_normal((s[0], int(np.prod(s[1:])))) * 2).astype(
+            np.float32)
+        out.append(quantize_plain(torch.from_numpy(x), block=block))
+    return out
+
+
+def _accumulate_bound(q, s, w, block):
+    n = q.shape[1]
+    ws = np.abs(w[:, None] * s)
+    per = np.repeat(ws, block, axis=1)[:, :n] * np.abs(q.astype(np.float32))
+    return 4 * q.shape[0] * U * per.sum(0) + 1e-30
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_dequant_group_matches_per_leaf_plain_ref_and_pallas(block):
+    coded = _coded(LEAF_SHAPES, block, block)
+    w = np.random.default_rng(7).uniform(0.2, 1.5, 3).astype(np.float32)
+    wt = torch.from_numpy(w)
+    before = dequant_accumulate.launches
+    outs = dequant_accumulate_group([q for q, _ in coded],
+                                    [s for _, s in coded], wt, block=block)
+    assert dequant_accumulate.launches == before
+    assert len(outs) == len(coded)
+    for (q, s), got in zip(coded, outs):
+        n = q.shape[1]
+        assert tuple(got.shape) == (n,) and got.dtype == torch.float32
+        assert torch.equal(got, dequant_accumulate_plain(q, s, wt,
+                                                         block=block))
+        assert torch.equal(got, dequant_accumulate(q, s, wt, block=block))
+        nb = s.shape[1]
+        q3 = np.pad(q.numpy(), ((0, 0), (0, nb * block - n))).reshape(
+            3, nb, block)
+        args = (jnp.asarray(q3), jnp.asarray(s.numpy()), jnp.asarray(w))
+        bound = _accumulate_bound(q.numpy(), s.numpy(), w, block)
+        for want in (jax_fa_ref.dequant_accumulate(*args),
+                     jax_dequant_pallas(*args, interpret=True)):
+            want = np.asarray(want).reshape(-1)[:n]
+            assert np.all(np.abs(got.numpy() - want) <= bound)
+
+
+def test_dequant_group_validates_and_dispatches():
+    (q, s), = _coded([(2, 10)], 128, 0)
+    w = torch.ones(2)
+    assert dequant_accumulate_group([], [], w) == []
+    with pytest.raises(ValueError, match="scale per q"):
+        dequant_accumulate_group([q, q], [s], w)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        dequant_accumulate_group([q], [s], torch.ones(3))
+    with pytest.raises(ValueError, match="weights"):
+        dequant_accumulate_group([q], [s], torch.ones(2, 1))
+    with pytest.raises(TypeError, match="int8"):
+        dequant_accumulate_group([q, q.float()], [s, s], w)
+    with pytest.raises(ValueError, match="several devices"):
+        dequant_accumulate_group([q], [s], torch.ones(2, device="meta"))
+
+
+STACK = {"w": (4, 12, 20), "stem": (4, 3, 3, 2, 8), "gn_scale": (4, 8),
+         "blocks": [{"b1": (4, 200)}, {"w": (4, 16, 48), "b": (4, 48)}]}
+
+
+def test_qblock_accumulate_is_one_group_call_matching_jax(monkeypatch):
+    r = np.random.default_rng(3)
+    tree = jax.tree.map(
+        lambda s: (r.standard_normal(s) * 0.1).astype(np.float32), STACK,
+        is_leaf=lambda x: isinstance(x, tuple))
+    w = np.asarray([1.0, 0.5, 0.25, 0.8], np.float32)
+    jc = JT.QBlock(block=128, use_pallas=False)
+    tc = T.resolve_codec("qblock")
+    jmsg = jax.vmap(jc.encode)(tree)
+    tmsg = tc.encode(params_from_numpy(tree, "cpu"))
+    calls = []
+    real = qblock_codec.dequant_accumulate_group
+
+    def spy(qs, scales, weights, **kw):
+        calls.append(len(qs))
+        return real(qs, scales, weights, **kw)
+
+    monkeypatch.setattr(qblock_codec, "dequant_accumulate_group", spy)
+    got = tc.accumulate(tmsg, torch.from_numpy(w))
+    assert calls == [len(tree_leaves(tmsg.leaves))]
+    want = jc.accumulate(jmsg, jnp.asarray(w))
+    for wl, gl, ml in zip(jax.tree.leaves(want), tree_leaves(got),
+                          tree_leaves(tmsg.leaves)):
+        assert tuple(gl.shape) == wl.shape
+        assert torch.equal(gl.reshape(-1), tc.accumulate_leaf(
+            ml, torch.from_numpy(w)).reshape(-1))
+        bound = _accumulate_bound(ml.parts["q"].numpy(),
+                                  ml.parts["scale"].numpy(), w, 128)
+        assert np.all(np.abs(gl.numpy().reshape(-1)
+                             - np.asarray(wl).reshape(-1)) <= bound)
+
+
+def test_qblock_accumulate_refuses_a_mixed_block_message():
+    """A message frames all its leaves with one block; one whose leaves
+    disagree is refused rather than decoded under the wrong framing."""
+    r = np.random.default_rng(4)
+    x = {k: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+         for k, s in (("a", (3, 300)), ("b", (3, 5, 40)))}
+    leaves = {k: T.QBlock(block=256 if k == "b" else 128).encode_leaf(v)
+              for k, v in x.items()}
+    with pytest.raises(ValueError, match=r"one block, got \[128, 256\]"):
+        T.QBlock(block=128).accumulate(T.WireMsg("qblock", leaves),
+                                       torch.ones(3))
+    one = T.QBlock(block=256)
+    msg = T.WireMsg("qblock", {k: one.encode_leaf(v) for k, v in x.items()})
+    got = T.QBlock(block=128).accumulate(msg, torch.ones(3))   # 256 framing
+    for k, m in msg.leaves.items():
+        assert torch.equal(got[k].reshape(-1), dequant_accumulate_plain(
+            m.parts["q"], m.parts["scale"], torch.ones(3), block=256))

@@ -25,6 +25,7 @@ import torch
 from repro.kernels.ns_ortho.kernel import matmul_fused as jax_matmul_fused
 from repro.kernels.soap_rotate import ops as jax_sr_ops, ref as jax_sr_ref
 from repro.kernels.soap_rotate.kernel import adam_moments as jax_adam_moments
+from repro_torch.kernels import grouped
 from repro_torch.kernels.ns_ortho import kernel as nsk
 from repro_torch.kernels.ns_ortho.kernel import matmul_fused, matmul_fused_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
@@ -369,8 +370,9 @@ def test_problem_row_flags_for_soap_forms():
 
 
 def test_arena_offsets_are_128_byte_aligned():
-    offsets, total = nsk.arena_offsets([5, 32, 33, 0, 1])
-    assert offsets == [0, 32, 64, 128, 128]
+    offsets, _, total, _ = grouped.arena_layout(((5,), (32,), (33,), (0,),
+                                                 (1,)))
+    assert offsets[0].tolist() == [0, 32, 64, 128, 128]
     assert total == 160
 
 

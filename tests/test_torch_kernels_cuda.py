@@ -13,13 +13,15 @@ Tolerances:
     contraction aside) and 1e-5 max(1, |n|) on n (a division and a square
     root, each rounded or approximated differently).
   * soap_rotated_update: 1e-4 max(1, |x|), the composition of the above.
-  * sophia_update: 1e-6 max(1, |x|) on d and m' (the same f32 expression,
-    FMA contraction off in the kernel); inputs include h = 0 and
-    clip-saturated entries.
+  * sophia_update: 1e-6 max(1, |x|) on d and m' for one leaf (the same
+    f32 expression, FMA contraction off in the kernel); inputs include
+    h = 0 and clip-saturated entries.  The grouped form is held bitwise
+    (NaN where the plain version has NaN) on a mixed list with NaN and
+    +-inf, unaligned views and ragged sizes.
   * quantize: q and scale bitwise equal (inputs include exact k + 0.5
     ties, all-zero blocks and ragged tails).
-  * dequant_accumulate: 4 B u sum_i |w_i s_i q_i| per element (B f32
-    products summed in another order).
+  * dequant_accumulate (one leaf or a group): 4 B u sum_i |w_i s_i q_i|
+    per element (B f32 products summed in another order).
 """
 import os
 import pathlib
@@ -37,12 +39,14 @@ from repro_torch.kernels.soap_rotate.kernel import (
     adam_moments, adam_moments_plain,
 )
 from repro_torch.kernels.fused_agg.kernel import (
-    dequant_accumulate, dequant_accumulate_plain,
+    MAX_LEAVES as DA_MAX_LEAVES, dequant_accumulate,
+    dequant_accumulate_group, dequant_accumulate_plain,
 )
 from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
 from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
 from repro_torch.kernels.sophia_update.kernel import (
-    sophia_update, sophia_update_plain,
+    MAX_LEAVES as SU_MAX_LEAVES, sophia_update, sophia_update_group,
+    sophia_update_plain,
 )
 
 U = 2.0 ** -24
@@ -234,6 +238,68 @@ def test_sophia_update_kernel_matches_plain(cuda, shape):
         assert bool((err <= 1e-6 * wv.abs().clamp(min=1.0)).all())
 
 
+def _sophia_group(gen, dev):
+    """(g, m, h) leaves as Sophia's step sees them — ViT- and CNN-shaped
+    stacks — plus NaN and +-inf in h and g, saturating clips (h = 0),
+    ragged sizes, and views at a 4-byte offset (scalar accesses)."""
+    leaves = []
+    for shape in ((5, 192, 576), (5, 192), (5, 768, 192), (2, 3, 3, 3, 8),
+                  (2, 8), (2, 1, 1, 8, 16), (1001,), (3, 7, 9)):
+        g, m = _randn(gen, *shape, dev=dev), _randn(gen, *shape, dev=dev)
+        h = torch.rand(shape, generator=gen).to(dev) * 50
+        h.view(-1)[::3] = 0.0
+        leaves.append((g, m, h))
+    g, m, h = leaves[4]
+    h.view(-1)[:4] = torch.tensor([float("nan"), float("inf"),
+                                   -float("inf"), 1e-30])
+    g.view(-1)[4:8] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), 0.0])
+    big = [_randn(gen, 4097, dev=dev) for _ in range(3)]
+    leaves.append(tuple(x[1:] for x in big))        # 4-byte offset, ragged
+    return leaves
+
+
+def _assert_bitwise(got, want, what):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32)), what
+
+
+def test_sophia_update_group_bitwise_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(23)
+    leaves = _sophia_group(gen, cuda)
+    gs, ms, hs = (list(x) for x in zip(*leaves))
+    before = sophia_update.launches
+    ds, mos = sophia_update_group(gs, ms, hs, b1=0.9, rho=0.05, eps=1e-12)
+    torch.cuda.synchronize()
+    assert sophia_update.launches == before + 1
+    for (g, m, h), d, mo in zip(leaves, ds, mos):
+        want_d, want_m = sophia_update_plain(g, m, h, b1=0.9, rho=0.05,
+                                             eps=1e-12)
+        _assert_bitwise(d, want_d, ("d", tuple(g.shape)))
+        _assert_bitwise(mo, want_m, ("m", tuple(g.shape)))
+    d = ds[4].view(-1).cpu()
+    assert torch.isnan(d[[0, 4]]).all()         # NaN h, NaN g stay NaN
+
+
+def test_sophia_update_group_splits_at_the_table_limit(cuda):
+    gen = torch.Generator().manual_seed(29)
+    leaves = [tuple(_randn(gen, 2, 3 + i % 9, dev=cuda) for _ in range(3))
+              for i in range(SU_MAX_LEAVES + 5)]
+    gs, ms, hs = (list(x) for x in zip(*leaves))
+    before = sophia_update.launches
+    ds, mos = sophia_update_group(gs, ms, [h.abs() for h in hs])
+    torch.cuda.synchronize()
+    assert sophia_update.launches == before + 2
+    for (g, m, h), d, mo in zip(leaves, ds, mos):
+        want_d, want_m = sophia_update_plain(g, m, h.abs())
+        _assert_bitwise(d, want_d, g.shape)
+        _assert_bitwise(mo, want_m, g.shape)
+
+
 def _tied(gen, rows, n, block, dev):
     x = torch.randn((rows, n), generator=gen) * 3
     k = torch.randint(-126, 126, (rows, min(block, n)), generator=gen)
@@ -279,6 +345,61 @@ def test_dequant_accumulate_kernel_matches_plain(cuda, b, n):
     err = (got.cpu() - want).abs()
     assert tuple(got.shape) == (n,)
     assert bool((err <= 4 * b * U * mag + 1e-30).all())
+
+
+def _da_bound(q, s, w, n):
+    mag = ((w[:, None] * s).repeat_interleave(128, dim=1)[:, :n].abs()
+           * q.float().abs()).sum(0)
+    return 4 * q.shape[0] * U * mag + 1e-30
+
+
+def test_dequant_accumulate_group_matches_plain(cuda):
+    """A mixed list: ViT- and CNN-sized leaves, ragged n, and a q at a
+    1-byte offset (byte loads)."""
+    gen = torch.Generator().manual_seed(31)
+    b = 5
+    coded = [quantize_plain(torch.randn((b, n), generator=gen))
+             for n in (110592, 192, 36864, 216, 8, 1001, 10, 4096)]
+    coded.append(quantize_plain(torch.randn((b, 777), generator=gen)))
+    w = torch.rand(b, generator=gen) + 0.2
+    qs = [q.to(cuda) for q, _ in coded]
+    buf = torch.empty(b * 777 + 1, dtype=torch.int8, device=cuda)
+    buf[1:] = qs[-1].reshape(-1)
+    qs[-1] = buf[1:].view(b, 777)
+    before = dequant_accumulate.launches
+    got = dequant_accumulate_group(qs, [s.to(cuda) for _, s in coded],
+                                   w.to(cuda), block=128)
+    torch.cuda.synchronize()
+    assert dequant_accumulate.launches == before + 1
+    assert qs[-1].data_ptr() % 4 == 1
+    for (q, s), out in zip(coded, got):
+        n = q.shape[1]
+        assert tuple(out.shape) == (n,)
+        err = (out.cpu() - dequant_accumulate_plain(q, s, w)).abs()
+        assert bool((err <= _da_bound(q, s, w, n)).all()), n
+
+
+def test_dequant_accumulate_group_splits_at_the_table_limit(cuda):
+    gen = torch.Generator().manual_seed(37)
+    coded = [quantize_plain(torch.randn((3, 5 + i % 300), generator=gen))
+             for i in range(DA_MAX_LEAVES + 3)]
+    w = torch.rand(3, generator=gen) + 0.2
+    before = dequant_accumulate.launches
+    got = dequant_accumulate_group([q.to(cuda) for q, _ in coded],
+                                   [s.to(cuda) for _, s in coded],
+                                   w.to(cuda))
+    torch.cuda.synchronize()
+    assert dequant_accumulate.launches == before + 2
+    for (q, s), out in zip(coded, got):
+        err = (out.cpu() - dequant_accumulate_plain(q, s, w)).abs()
+        assert bool((err <= _da_bound(q, s, w, q.shape[1])).all())
+
+
+def test_dequant_accumulate_kernel_rejects_unaligned_block(cuda):
+    q, s = quantize_plain(torch.ones(2, 100), block=64)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        dequant_accumulate(q.to(cuda), s.to(cuda), torch.ones(2, device=cuda),
+                           block=64)
 
 
 def test_port_imports_no_jax(cuda):

@@ -21,7 +21,6 @@ Needs a CUDA device; imports nothing of JAX.
 """
 import concurrent.futures
 import json
-import math
 import os
 import sys
 
@@ -44,6 +43,7 @@ def main():
         gemm_forms, leaf_inputs, step_groups, timed,
     )
     from repro_torch.kernels import build
+    from repro_torch.kernels.grouped import arena_layout
     from repro_torch.kernels.ns_ortho import kernel as mf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -78,11 +78,11 @@ def main():
 
     def prebuilt(group, lib):
         """Launch ``group`` from tables built once (outputs reused)."""
-        shapes = [(*p[0].shape[:-1], p[1].shape[-1]) for p in group]
-        offsets, total = mf.arena_offsets(math.prod(s) for s in shapes)
+        shapes = tuple((*p[0].shape[:-1], p[1].shape[-1]) for p in group)
+        offsets, _, total, _ = arena_layout(shapes)
         arena = torch.empty(total, device=dev)
-        rows = [mf.problem_row(*p, arena.data_ptr() + 4 * o)
-                for p, o in zip(group, offsets)]
+        rows = [mf.problem_row(*p, arena.data_ptr() + 4 * int(o))
+                for p, o in zip(group, offsets[0])]
         tables = mf.group_tables(rows, lib.tile)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
