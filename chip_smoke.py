@@ -19,8 +19,9 @@ to 0 just before it and read just after:
 
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches, Sophia's step one
-``sophia_update`` launch and a qblock round 3 ``dequant_accumulate``
-launches (the delta flush and theta's two).  The two CNN
+``sophia_update`` launch and a qblock round 2 ``quantize`` launches (the
+delta and theta encodes) and 3 ``dequant_accumulate`` launches (the delta
+flush and theta's two).  The two CNN
 runs are repeated on the CPU (plain versions) from the same weights (and,
 for Sophia, the same Hutchinson probes), and the histories must agree.
 
@@ -126,6 +127,7 @@ def build_kernels(dev):
     the Triton kernel compiled by a first launch."""
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_agg import kernel as fused_agg
+    from repro_torch.kernels.qblock import kernel as qblock
     from repro_torch.kernels.soap_rotate.kernel import adam_moments
     from repro_torch.kernels.sophia_update import kernel as sophia
 
@@ -156,6 +158,11 @@ def build_kernels(dev):
     log(f"sophia_update: {lib.resident_blocks()} persistent blocks of "
         f"{threads} threads, {chunk}-element chunks, <= {max_l} leaves per "
         f"launch ({table} B table)")
+    lib = qblock.kernel_library()
+    threads, slice_, max_l, _, table = lib.config
+    log(f"quantize: {lib.resident_blocks()} persistent blocks of {threads} "
+        f"threads ({slice_}-element slices of a quant block), <= "
+        f"{max_l} leaves per launch ({table} B table)")
     lib = fused_agg.kernel_library()
     threads, elems, max_l, _, table = lib.config
     log(f"dequant_accumulate: {lib.resident_blocks()} persistent blocks of "
@@ -407,23 +414,41 @@ def tied_rows(rows, n, dev, gen, block=128):
 
 
 def check_quantize(stacked_shapes, dev, gen):
-    """Kernel vs plain on every leaf (rows = clients): q and scale
-    bitwise equal."""
-    from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
-    ragged = 0
-    for shape in stacked_shapes:
-        rows, n = shape[0], math.prod(shape[1:])
-        ragged += n % 128 != 0
-        x = tied_rows(rows, n, dev, gen)
-        q, s = quantize(x)
+    """Kernel vs plain on every leaf (rows = clients), in one grouped
+    launch and one leaf a launch: q and scale bitwise equal.  The first
+    leaves hold NaN and +-inf, whose blocks must get the plain version's
+    NaN or inf scale (their codes, a NaN cast to int8, are not
+    compared)."""
+    from repro_torch.kernels.qblock.kernel import (
+        quantize, quantize_group, quantize_plain,
+    )
+    xs = [tied_rows(shape[0], math.prod(shape[1:]), dev, gen)
+          for shape in stacked_shapes]
+    nonfinite = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for x in xs[:4]:
+        x.view(-1)[-3:] = nonfinite
+    ragged = sum(x.shape[1] % 128 != 0 for x in xs)
+    before = quantize.launches
+    grouped = quantize_group(xs)
+    if quantize.launches != before + 1:
+        raise AssertionError(f"one group of {len(xs)} leaves took "
+                             f"{quantize.launches - before} launches")
+    special = 0
+    for x, got_g in zip(xs, grouped):
         wq, ws = quantize_plain(x)
-        if not (torch.equal(q, wq) and torch.equal(s, ws)):
-            bad = int((q != wq).sum()) + int((s != ws).sum())
-            raise AssertionError(f"quantize at {shape}: {bad} values differ "
-                                 "from the plain version")
-    log(f"quantize vs plain on {len(stacked_shapes)} leaves: q and scale "
-        f"bitwise equal ({ragged} leaves with a ragged tail, ties and zero "
-        "blocks in each)")
+        ok = torch.isfinite(ws)
+        special += int((~ok).sum())
+        ok_q = ok.repeat_interleave(128, dim=1)[:, :x.shape[1]]
+        for form, (q, s) in (("grouped", got_g), ("single", quantize(x))):
+            bad = int((q[ok_q] != wq[ok_q]).sum()) + bits_differ(s, ws)
+            if bad:
+                raise AssertionError(
+                    f"quantize ({form}) at {tuple(x.shape)}: {bad} values "
+                    "differ from the plain version")
+    log(f"quantize vs plain on {len(xs)} leaves, grouped (one launch) and "
+        f"one leaf a launch: q and scale bitwise equal ({ragged} leaves "
+        f"with a ragged tail, ties and zero blocks in each; {special} "
+        "blocks with NaN or inf, scales equal)")
     return 0.0
 
 
@@ -571,17 +596,17 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
     """The Sophia and qblock kernels' work on ViT-Tiny at S=5 (all 127
     leaves): ``sophia_update`` for one local step, ``quantize`` and
     ``dequant_accumulate`` for one upload channel of one round.  Timed
-    as ``time_kernels`` times the SOAP kernels: ``sophia_update`` and
-    ``dequant_accumulate`` as the path runs them (one grouped launch:
-    ``ms``, ``device_ms``) and one leaf a launch (127 launches:
-    ``single_ms``, ``single_device_ms``).  No single PyTorch call
-    computes any of the three functions, so there is no library time."""
+    as ``time_kernels`` times the SOAP kernels: each as the path runs it
+    (one grouped launch: ``ms``, ``device_ms``) and one leaf a launch
+    (127 launches: ``single_ms``, ``single_device_ms``).  No single
+    PyTorch call computes any of the three functions, so there is no
+    library time."""
     from repro_torch.kernels.fused_agg.kernel import (
         dequant_accumulate, dequant_accumulate_group,
         dequant_accumulate_plain,
     )
     from repro_torch.kernels.qblock.kernel import (
-        n_blocks, quantize, quantize_plain,
+        n_blocks, quantize, quantize_group, quantize_plain,
     )
     from repro_torch.kernels.sophia_update.kernel import (
         sophia_update, sophia_update_group, sophia_update_plain,
@@ -606,10 +631,11 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
             what=f"one local step, {len(soph)} leaves, "
                  f"{elems / 1e6:.2f} M elements"),
         "quantize": dict(
-            fns=[lambda f=f: [f(x) for x in rows]
-                 for f in (quantize, quantize_plain)],
+            fns=[lambda: quantize_group(rows),
+                 lambda: [quantize_plain(x) for x in rows],
+                 lambda: [quantize(x) for x in rows]],
             bytes=4 * elems + elems + 4 * scales, flops=5 * elems,
-            what=f"one channel of one round, {len(rows)} launches, "
+            what=f"one channel of one round, {len(rows)} leaves, "
                  f"{elems / 1e6:.2f} M elements"),
         "dequant_accumulate": dict(
             fns=[lambda: dequant_accumulate_group(*coded_cols, w),
@@ -763,11 +789,13 @@ def main_paths(vit_shapes, cnn_shapes):
         for name, n in launches.items():
             total[name] += n
         # SOAP's step is 5 grouped launches (the EMAs, 4 rotations),
-        # Sophia's one; a qblock round flushes 3 times (delta, theta twice)
+        # Sophia's one; a qblock round of an aligned algorithm encodes
+        # twice (delta, theta) and flushes 3 times (delta, theta twice)
         steps = exp.fed.local_steps * exp.fed.rounds
         for name, want, what in (
                 ("matmul_fused", 5 * steps, "5 per local step"),
                 ("sophia_update", steps, "1 per local step"),
+                ("quantize", 2 * exp.fed.rounds, "2 per round"),
                 ("dequant_accumulate", 3 * exp.fed.rounds, "3 per round")):
             if name in expect and launches[name] != want:
                 raise AssertionError(f"{label}: {launches[name]} {name} "

@@ -7,10 +7,12 @@ per client, a ~4x shrink for f32 trees with per-element error bounded by
 scale/2.  The codec sees the cohort-stacked leaf as ``(S, n)`` and the
 ``quantize`` kernel (``kernels/qblock``) cuts each client's row into
 blocks of its own, so the message is exactly the reference's ``vmap`` of
-one client's encode.  Server-side the codec never decodes a stacked
-cohort: ``accumulate`` runs the fused dequantize-accumulate kernel
-(``kernels/fused_agg``) straight into the weighted sums, one grouped
-launch for every leaf of the tree (``accumulate_leaf`` for one), and
+one client's encode; ``encode`` quantizes every leaf of the tree in one
+grouped launch (``encode_leaf`` one leaf).  Server-side the codec never
+decodes a stacked cohort: ``accumulate`` runs the fused
+dequantize-accumulate kernel (``kernels/fused_agg``) straight into the
+weighted sums, one grouped launch for every leaf of the tree
+(``accumulate_leaf`` for one), and
 ``sq_norms_leaf`` takes s^2 * sum(q^2) per block in plain PyTorch, as the
 reference computes it in ``jnp``.  ``decode_leaf`` (the error-feedback
 residual, tests) is plain PyTorch, as the reference's ``dequantize`` is.
@@ -21,13 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.transport.base import (
-    Codec, LeafMsg, TransportConfig, register_codec,
+    Codec, LeafMsg, TransportConfig, WireMsg, register_codec,
 )
 from repro_torch.kernels.fused_agg.kernel import (
     dequant_accumulate, dequant_accumulate_group,
 )
-from repro_torch.kernels.qblock.kernel import dequantize, quantize
-from repro_torch.utils.tree import tree_flatten_with_path, tree_unflatten
+from repro_torch.kernels.qblock.kernel import (
+    dequantize, quantize, quantize_group,
+)
+from repro_torch.utils.tree import (
+    tree_flatten_with_path, tree_leaves, tree_unflatten,
+)
 
 
 class QBlock(Codec):
@@ -37,12 +43,23 @@ class QBlock(Codec):
     def __init__(self, block: int = 128):
         self.block = block
 
-    def encode_leaf(self, leaf) -> LeafMsg:
-        q, scale = quantize(leaf.reshape(leaf.shape[0], -1), block=self.block)
+    def _msg(self, leaf, q, scale) -> LeafMsg:
         # the block size rides in the envelope, so a decoder configured
         # differently still frames the blocks correctly
         return LeafMsg("qblock", tuple(leaf.shape), leaf.dtype,
                        {"q": q, "scale": scale}, extra=self.block)
+
+    def encode_leaf(self, leaf) -> LeafMsg:
+        return self._msg(leaf, *quantize(leaf.reshape(leaf.shape[0], -1),
+                                         block=self.block))
+
+    def encode(self, tree) -> WireMsg:
+        """Every leaf of the stacked tree: one grouped kernel call."""
+        flat = tree_leaves(tree)
+        coded = quantize_group([x.reshape(x.shape[0], -1) for x in flat],
+                               block=self.block)
+        return WireMsg(self.name, tree_unflatten(tree, [
+            self._msg(x, q, s) for x, (q, s) in zip(flat, coded)]))
 
     def decode_leaf(self, msg: LeafMsg):
         x = dequantize(msg.parts["q"], msg.parts["scale"], msg.extra)

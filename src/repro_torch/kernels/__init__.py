@@ -7,7 +7,8 @@ version:
   soap_rotate/ops.py      soap_rotated_update, composed from the two
   sophia_update/kernel.py sophia_update, sophia_update_group  CUDA C++
                           (csrc/sophia_update.cu: one grouped launch)
-  qblock/kernel.py        quantize      CUDA C++ (csrc/qblock.cu)
+  qblock/kernel.py        quantize, quantize_group  CUDA C++
+                          (csrc/qblock.cu: one grouped launch)
   fused_agg/kernel.py     dequant_accumulate, dequant_accumulate_group
                           CUDA C++ (csrc/fused_agg.cu: one grouped launch)
 

@@ -7,7 +7,7 @@ checks its numpy record against the compiled library's ``sizeof``) and
 copied into the launch's parameters at the call, so no device buffer or
 pinned copy has to outlive it (``csrc/grouped.cuh``).  Hopper takes up to
 ``PARAM_LIMIT`` bytes of kernel parameters; a longer group splits into
-several launches.  Outputs are views into one f32 arena per call.
+several launches.  Outputs are views into one arena per call and dtype.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import math
 import numpy as np
 
 PARAM_LIMIT = 32764          # bytes of kernel parameters on Hopper (CUDA >= 12.1)
-OUT_ALIGN = 32               # floats: every output starts 128-byte aligned
+OUT_ALIGN = 32               # elements: every f32 output starts 128-byte
+                             # aligned, every int8 one 32-byte aligned
 
 
 def max_records(header: np.dtype, record: np.dtype) -> int:
@@ -74,9 +75,10 @@ def arena_layout(shapes: tuple, copies: int = 1, align: int = OUT_ALIGN):
 
     Outputs of one shape lie side by side, each ``align``-aligned, so a
     run of them is cut into views with a few tensor ops (``arena_views``)
-    rather than a few per output.  ``offsets`` (copies, len(shapes)) are
-    in floats, ``numels`` (len(shapes),); runs are (shape, numel, padded
-    numel, first offset, output indices)."""
+    rather than a few per output.  Everything is counted in elements, so
+    one layout serves an arena of any dtype (f32 outputs, int8 codes).
+    ``offsets`` (copies, len(shapes)), ``numels`` (len(shapes),); runs are
+    (shape, numel, padded numel, first offset, output indices)."""
     by_shape: dict = {}
     for i, s in enumerate(shapes):
         by_shape.setdefault(tuple(s), []).append(i)

@@ -1,11 +1,12 @@
 """The port's grouped kernels (one launch over a list of leaves) on the
 CPU: the numpy tables each wrapper hands its CUDA kernel by value, the
 arena its outputs are views into, and the grouped entry points'
-plain path — ``sophia_update_group`` and ``dequant_accumulate_group``
-against the per-leaf plain versions, the JAX package's ``ref.py`` and the
-Pallas kernels in interpret mode — and their callers, Sophia's step and
-``QBlock.accumulate``.  tests/test_torch_kernels_cuda.py holds the CUDA
-kernels against the same plain versions on the card.
+plain path — ``sophia_update_group``, ``quantize_group`` and
+``dequant_accumulate_group`` against the per-leaf plain versions, the JAX
+package's ``ref.py`` and the Pallas kernels in interpret mode — and their
+callers, Sophia's step, ``QBlock.encode`` and ``QBlock.accumulate``.
+tests/test_torch_kernels_cuda.py holds the CUDA kernels against the same
+plain versions on the card.
 
 Tolerances:
   * sophia_update (group and per leaf): bitwise equal to the per-leaf
@@ -13,6 +14,14 @@ Tolerances:
     ``ref.py`` and the Pallas kernel (the same f32 expression under XLA);
     NaN where the reference gives NaN — ``jnp.maximum`` and ``jnp.clip``
     carry NaN through.
+  * quantize (group) and ``QBlock.encode``: q and scale bitwise equal to
+    the per-leaf plain version and to ``ref.py`` (exact k + 0.5 ties,
+    all-zero blocks, ragged tails); against the interpret-mode Pallas
+    kernel, scales within one ulp (XLA's jit divides by 127 as a multiply
+    by 1/127) and q equal wherever the scales are, as
+    tests/test_torch_qblock.py states it.  A block holding NaN or +-inf
+    gets the reference's NaN or inf scale (its codes are a NaN cast to
+    int8, which no framework defines, and are not compared).
   * dequant_accumulate (group) and ``QBlock.accumulate``: bitwise equal to
     the per-leaf plain version; 4 B u sum_i |w_i s_i q_i| per element
     against the reference (u = 2^-24: B f32 products summed in another
@@ -29,6 +38,8 @@ from repro.kernels.fused_agg import ref as jax_fa_ref
 from repro.kernels.fused_agg.kernel import (
     dequant_accumulate as jax_dequant_pallas,
 )
+from repro.kernels.qblock import ref as jax_qb_ref
+from repro.kernels.qblock.kernel import quantize as jax_quantize_pallas
 from repro.kernels.sophia_update import ref as jax_sophia_ref
 from repro.kernels.sophia_update.kernel import (
     sophia_update as jax_sophia_pallas,
@@ -41,7 +52,10 @@ from repro_torch.kernels.fused_agg import kernel as fak
 from repro_torch.kernels.fused_agg.kernel import (
     dequant_accumulate, dequant_accumulate_group, dequant_accumulate_plain,
 )
-from repro_torch.kernels.qblock.kernel import quantize_plain
+from repro_torch.kernels.qblock import kernel as qbk
+from repro_torch.kernels.qblock.kernel import (
+    quantize, quantize_group, quantize_plain,
+)
 from repro_torch.kernels.sophia_update import kernel as suk
 from repro_torch.kernels.sophia_update.kernel import (
     sophia_update, sophia_update_group, sophia_update_plain,
@@ -150,6 +164,81 @@ def test_dequant_tables_split_at_the_record_limit():
     for table, idx in tables:
         head = table[:fak.HEADER.itemsize].view(fak.HEADER)[0]
         assert head["total_items"] == 32 * len(idx)
+
+
+def test_quantize_table_capacity_fits_the_launch_parameters():
+    assert qbk.LEAF.itemsize == 48 and qbk.HEADER.itemsize == 16
+    assert qbk.MAX_LEAVES == (32764 - 16) // 48 == 682
+    assert qbk.TABLE_BYTES <= grouped.PARAM_LIMIT
+    assert qbk.TABLE_BYTES + qbk.LEAF.itemsize > grouped.PARAM_LIMIT
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_tables_records_item_prefixes_header_and_flags(block):
+    rows = np.array([5, 5, 3, 2, 5, 0, 4, 2])
+    ns = np.array([576, 10, 0, 1000, 192, 64, 300, 48])
+    ptrs = _fake_ptrs(len(ns), 3)
+    ptrs[4, 0] += np.uint64(8)      # x not 16-byte aligned
+    ptrs[6, 1] += np.uint64(4)      # q 4-byte aligned: still wide
+    ptrs[7, 1] += np.uint64(2)      # q not 4-byte aligned
+    (table, idx), = qbk.leaf_tables(ptrs, rows, ns, block, 1e-12)
+    assert table.nbytes == qbk.TABLE_BYTES
+    assert idx.tolist() == [0, 1, 3, 4, 6, 7]   # no elements, no clients
+    head = table[:qbk.HEADER.itemsize].view(qbk.HEADER)[0]
+    nb = [-(-n // block) for n in ns[idx]]
+    items = [r * b for r, b in zip(rows[idx], nb)]   # a quant block a row
+    assert (head["num_leaves"], head["total_items"]) == (6, sum(items))
+    assert (head["block"], head["eps"]) == (block, np.float32(1e-12))
+    recs = table[qbk.HEADER.itemsize:].view(qbk.LEAF)
+    assert recs["item_start"][:6].tolist() == list(np.cumsum(items) - items)
+    assert recs["nb"][:6].tolist() == nb
+    assert recs["n"][:6].tolist() == ns[idx].tolist()
+    for j, name in enumerate(("x", "q", "scale")):
+        assert recs[name][:6].tolist() == ptrs[idx, j].tolist()
+    # n % 4, x's 16-byte and q's 4-byte alignment decide the flag
+    assert recs["flags"][:6].tolist() == [1, 0, 1, 0, 1, 0]
+    assert not table[qbk.HEADER.itemsize + 6 * qbk.LEAF.itemsize:].any()
+
+
+def test_quantize_tables_split_at_the_record_limit():
+    n = 2 * qbk.MAX_LEAVES + 3
+    ns = np.full(n, 300)
+    ns[5] = 0
+    tables = qbk.leaf_tables(_fake_ptrs(n, 3), np.full(n, 2), ns, 128,
+                             1e-12)
+    assert [len(i) for _, i in tables] == [qbk.MAX_LEAVES, qbk.MAX_LEAVES, 2]
+    assert sorted(i for _, idx in tables for i in idx) == [
+        i for i in range(n) if i != 5]
+    for table, idx in tables:
+        head = table[:qbk.HEADER.itemsize].view(qbk.HEADER)[0]
+        recs = table[qbk.HEADER.itemsize:].view(qbk.LEAF)
+        assert head["num_leaves"] == len(idx)
+        assert head["total_items"] == 6 * len(idx)      # 2 rows x 3 blocks
+        assert recs["item_start"][:len(idx)].tolist() == list(
+            range(0, 6 * len(idx), 6))
+
+
+def test_quantize_layout_cuts_contiguous_codes_and_scales():
+    """The int8 codes and the f32 scales of a call come from two arenas of
+    one ``arena_layout`` each (counted in elements); every view is a
+    contiguous (rows, n) / (rows, nb) tensor at its own offset."""
+    shapes = ((5, 576), (5, 10), (5, 576), (3, 0), (2, 1000))
+    (q_off, q_runs, q_total), (s_off, s_runs, s_total) = qbk._layout(
+        shapes, 128)
+    assert (q_off % grouped.OUT_ALIGN == 0).all()
+    assert (s_off % grouped.OUT_ALIGN == 0).all()
+    qs, = grouped.arena_views(torch.arange(q_total).to(torch.int8), q_runs,
+                              len(shapes))
+    ss, = grouped.arena_views(torch.arange(s_total, dtype=torch.float32),
+                              s_runs, len(shapes))
+    for (r, n), q, s, qo, so in zip(shapes, qs, ss, q_off, s_off):
+        assert q.dtype == torch.int8 and tuple(q.shape) == (r, n)
+        assert s.dtype == torch.float32 and tuple(s.shape) == (r, -(-n // 128))
+        assert q.is_contiguous() and s.is_contiguous()
+        if s.numel():
+            assert float(s.reshape(-1)[0]) == so
+            assert int(q.reshape(-1)[0]) == np.int8(qo % 256)
+    assert qbk._layout(shapes, 128) is qbk._layout(shapes, 128)   # cached
 
 
 def test_split_tables_refuses_a_32_bit_overflow():
@@ -329,6 +418,124 @@ def test_sophia_step_makes_one_group_call_and_keeps_the_tree(monkeypatch):
         assert torch.equal(got_d, want_d + 0.1 * p)
 
 
+# --------------------------------------------------------------- quantize
+
+def _tied_rows(rows, n, block, seed):
+    """(rows, n) f32 with a block of exact k + 0.5 ties at scale 2^-3
+    (round half to even), an all-zero block where n allows, random blocks,
+    and a ragged tail whenever n % block != 0."""
+    r = np.random.default_rng(seed)
+    x = (r.standard_normal((rows, n)) * 3.0).astype(np.float32)
+    b0 = min(block, n)
+    ties = (r.integers(-126, 126, (rows, b0)) + 0.5) * 0.125
+    ties[:, 0] = 127 * 0.125                 # amax -> scale = 2^-3
+    x[:, :b0] = ties
+    if n > 2 * block:
+        x[:, block:2 * block] = 0.0
+    return x
+
+
+def _quant_leaves(block, seed):
+    """Per-client rows of LEAF_SHAPES and of a ViT-Tiny block's leaves
+    at S=2, ragged and tied."""
+    shapes = [(s[0], int(np.prod(s[1:]))) for s in LEAF_SHAPES]
+    shapes += [(2, 192 * 576), (2, 192), (2, 768), (2, 100)]
+    return [_tied_rows(r, n, block, seed + i)
+            for i, (r, n) in enumerate(shapes)]
+
+
+def _ref_rows(x, block):
+    """ref.py's quantize, one client's row at a time (the reference's
+    vmap), q trimmed to the n values that ship."""
+    n = x.shape[1]
+    out = [jax_qb_ref.quantize(jnp.asarray(row), block=block) for row in x]
+    return (np.stack([np.asarray(q).reshape(-1)[:n] for q, _ in out]),
+            np.stack([np.asarray(s) for _, s in out]))
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_group_bitwise_matches_per_leaf_plain_and_ref(block):
+    leaves = _quant_leaves(block, block)
+    before = quantize.launches
+    coded = quantize_group([torch.from_numpy(x) for x in leaves],
+                           block=block)
+    assert quantize.launches == before                # the CPU's plain path
+    assert len(coded) == len(leaves)
+    ties = 0
+    for x, (q, s) in zip(leaves, coded):
+        rows, n = x.shape
+        assert q.dtype == torch.int8 and tuple(q.shape) == (rows, n)
+        assert s.dtype == torch.float32
+        assert tuple(s.shape) == (rows, -(-n // block))
+        for want in (quantize_plain(torch.from_numpy(x), block=block),
+                     quantize(torch.from_numpy(x), block=block)):
+            assert torch.equal(q, want[0]) and torch.equal(s, want[1])
+        want_q, want_s = _ref_rows(x, block)
+        np.testing.assert_array_equal(q.numpy(), want_q)
+        np.testing.assert_array_equal(s.numpy(), want_s)
+        xs = x[:, :min(block, n)] / want_s[:, :1]
+        ties += int(np.sum(np.abs(xs - np.round(xs)) == 0.5))
+    assert ties > 0                       # half-to-even was exercised
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_group_matches_pallas_interpret_within_one_ulp(block):
+    """The Pallas kernel in interpret mode divides by 127 as XLA's jit
+    does, through the reciprocal: scales within one ulp, q equal wherever
+    the scales agree and within one elsewhere."""
+    leaves = [_tied_rows(2, n, block, n) for n in (300, 4096, 192, 10)]
+    coded = quantize_group([torch.from_numpy(x) for x in leaves],
+                           block=block)
+    for x, (q, s) in zip(leaves, coded):
+        n = x.shape[1]
+        for i in range(2):
+            pq, ps = jax_quantize_pallas(jnp.asarray(x[i]), block=block,
+                                         interpret=True)
+            pq = np.asarray(pq).reshape(-1)[:n].astype(np.int32)
+            ps = np.asarray(ps)
+            got_q, got_s = q.numpy()[i].astype(np.int32), s.numpy()[i]
+            assert np.all(np.abs(got_s.view(np.int32)
+                                 - ps.view(np.int32)) <= 1)
+            same = np.repeat(got_s == ps, block)[:n]
+            np.testing.assert_array_equal(got_q[same], pq[same])
+            assert np.all(np.abs(got_q - pq) <= 1)
+
+
+def test_quantize_group_nan_and_inf_scales_follow_the_reference():
+    """``jnp.max`` carries NaN into the block's scale and ``jnp.maximum``
+    keeps it (a max that dropped NaN would give the block a finite
+    scale); +-inf gives an inf scale.  Other blocks are untouched."""
+    x = _tied_rows(3, 700, 128, 9)
+    x[0, 5] = np.nan
+    x[1, 130] = np.inf
+    x[1, 300] = -np.inf
+    x[2, 650] = np.nan
+    x[2, 651] = np.inf
+    (q, s), = quantize_group([torch.from_numpy(x)])
+    want_q, want_s = _ref_rows(x, 128)
+    got = s.numpy()
+    nan = np.isnan(want_s)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan], want_s[~nan])
+    assert np.isnan(got[[0, 2], [0, 5]]).all()
+    assert np.isinf(got[1, [1, 2]]).all()
+    ok = np.repeat(np.isfinite(want_s), 128, axis=1)[:, :700]
+    np.testing.assert_array_equal(q.numpy()[ok], want_q[ok])
+
+
+def test_quantize_group_validates_and_dispatches():
+    x = torch.ones(2, 10)
+    assert quantize_group([]) == []
+    with pytest.raises(ValueError, match="rows, n"):
+        quantize_group([x, torch.ones(10)])
+    with pytest.raises(ValueError, match="block must be"):
+        quantize_group([x], block=0)
+    with pytest.raises(ValueError, match="several devices"):
+        quantize_group([x, torch.ones(2, 10, device="meta")])
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantize_group([torch.ones(2, 10, device="meta")])
+
+
 # ----------------------------------------------------- dequant_accumulate
 
 def _coded(shapes, block, seed):
@@ -444,3 +651,42 @@ def test_qblock_accumulate_refuses_a_mixed_block_message():
     for k, m in msg.leaves.items():
         assert torch.equal(got[k].reshape(-1), dequant_accumulate_plain(
             m.parts["q"], m.parts["scale"], torch.ones(3), block=256))
+
+
+def test_qblock_encode_is_one_group_call_matching_jax(monkeypatch):
+    """``QBlock.encode`` quantizes the whole stacked tree in one grouped
+    call and keeps its structure; every leaf's message is bitwise the
+    JAX codec's under ``vmap`` and ``encode_leaf``'s."""
+    r = np.random.default_rng(6)
+    tree = jax.tree.map(
+        lambda s: (r.standard_normal(s) * 0.1).astype(np.float32), STACK,
+        is_leaf=lambda x: isinstance(x, tuple))
+    jc = JT.QBlock(block=128, use_pallas=False)
+    tc = T.resolve_codec("qblock")
+    calls = []
+    real = qblock_codec.quantize_group
+
+    def spy(xs, **kw):
+        calls.append(len(xs))
+        return real(xs, **kw)
+
+    monkeypatch.setattr(qblock_codec, "quantize_group", spy)
+    ttree = params_from_numpy(tree, "cpu")
+    tmsg = tc.encode(ttree)
+    assert calls == [len(tree_leaves(ttree))]
+    assert T.wire_bytes(tmsg) == JT.wire_bytes(jax.vmap(jc.encode)(tree))
+    jmsg = jax.vmap(jc.encode)(tree)
+    flat = tree_flatten_with_path(tmsg.leaves)
+    assert [p for p, _ in flat] == [p for p, _ in tree_flatten_with_path(
+        ttree)]
+    for jl, (path, tl), x in zip(jmsg.leaves, flat, tree_leaves(ttree)):
+        assert tl.kind == "qblock" and tl.extra == jl.extra == 128
+        assert tl.shape == tuple(x.shape) and tl.dtype == x.dtype
+        np.testing.assert_array_equal(tl.parts["q"].numpy(),
+                                      np.asarray(jl.parts["q"]),
+                                      err_msg=str(path))
+        np.testing.assert_array_equal(tl.parts["scale"].numpy(),
+                                      np.asarray(jl.parts["scale"]))
+        one = tc.encode_leaf(x)
+        assert torch.equal(one.parts["q"], tl.parts["q"])
+        assert torch.equal(one.parts["scale"], tl.parts["scale"])

@@ -18,8 +18,11 @@ Tolerances:
     h = 0 and clip-saturated entries.  The grouped form is held bitwise
     (NaN where the plain version has NaN) on a mixed list with NaN and
     +-inf, unaligned views and ragged sizes.
-  * quantize: q and scale bitwise equal (inputs include exact k + 0.5
-    ties, all-zero blocks and ragged tails).
+  * quantize (one leaf or a group): q and scale bitwise equal (inputs
+    include exact k + 0.5 ties, all-zero blocks, ragged tails and views at
+    a 4-byte offset); a block holding NaN or +-inf gets the plain
+    version's NaN or inf scale (its codes, a NaN cast to int8, are not
+    compared).
   * dequant_accumulate (one leaf or a group): 4 B u sum_i |w_i s_i q_i|
     per element (B f32 products summed in another order).
 """
@@ -42,7 +45,9 @@ from repro_torch.kernels.fused_agg.kernel import (
     MAX_LEAVES as DA_MAX_LEAVES, dequant_accumulate,
     dequant_accumulate_group, dequant_accumulate_plain,
 )
-from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
+from repro_torch.kernels.qblock.kernel import (
+    MAX_LEAVES as QB_MAX_LEAVES, quantize, quantize_group, quantize_plain,
+)
 from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
 from repro_torch.kernels.sophia_update.kernel import (
     MAX_LEAVES as SU_MAX_LEAVES, sophia_update, sophia_update_group,
@@ -327,6 +332,80 @@ def test_quantize_kernel_bitwise_matches_plain(cuda, rows, n, block):
 def test_quantize_kernel_rejects_unaligned_block(cuda):
     with pytest.raises(ValueError, match="multiples of 128"):
         quantize(torch.ones(2, 10, device=cuda), block=64)
+
+
+def _model_rows():
+    """(rows, n) of every ViT-Tiny leaf at S=5 and every CNN leaf at S=2,
+    as the qblock codec hands them to ``quantize_group``."""
+    from repro_torch.models.vision import init_cnn, init_vit
+    from repro_torch.utils.tree import tree_leaves
+    gen = torch.Generator().manual_seed(0)
+    vit, _ = init_vit(gen, image_size=32, n_classes=100, device="cpu",
+                      patch=4, d_model=192, layers=12, heads=3)
+    cnn = init_cnn(gen, n_classes=8, width=8, blocks=2, device="cpu")
+    return ([(5, p.numel()) for p in tree_leaves(vit)]
+            + [(2, p.numel()) for p in tree_leaves(cnn)])
+
+
+def _assert_codes_match(x, q, s, block):
+    """q and scale bitwise the plain version's; NaN scales where it has
+    NaN, and codes compared only in blocks with a finite scale."""
+    wq, ws = quantize_plain(x.cpu(), block=block)
+    q, s = q.cpu(), s.cpu()
+    assert q.shape == wq.shape and s.shape == ws.shape
+    assert q.is_contiguous() and s.is_contiguous()
+    nan = torch.isnan(ws)
+    assert torch.equal(torch.isnan(s), nan)
+    assert torch.equal(s[~nan], ws[~nan])
+    ok = torch.isfinite(ws).repeat_interleave(block, dim=1)[:, :q.shape[1]]
+    assert torch.equal(q[ok], wq[ok])
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_quantize_group_bitwise_matches_plain(cuda, block):
+    """Every ViT-Tiny and CNN leaf in one launch, plus ragged sizes, a
+    leaf at a 4-byte offset (scalar accesses), and NaN and +-inf blocks."""
+    gen = torch.Generator().manual_seed(41 + block)
+    xs = [_tied(gen, r, n, block, cuda)
+          for r, n in _model_rows() + [(3, 1001), (2, 10), (4, 777)]]
+    big = _tied(gen, 3, 4097, block, cuda).view(-1)
+    xs.append(big[1:3 * 4096 + 1].view(3, 4096))   # 4-byte offset
+    xs[6].view(-1)[[3, 200]] = float("nan")         # (5, 147456)
+    xs[6].view(-1)[[500, 900]] = torch.tensor([float("inf"),
+                                               -float("inf")], device=cuda)
+    xs[-2].view(-1)[5] = float("nan")               # a ragged leaf
+    before = quantize.launches
+    got = quantize_group(xs, block=block)
+    torch.cuda.synchronize()
+    assert quantize.launches == before + 1
+    assert xs[-1].data_ptr() % 16 == 4
+    for x, (q, s) in zip(xs, got):
+        _assert_codes_match(x, q, s, block)
+    s6 = got[6][1].cpu().view(-1)
+    assert torch.isnan(s6[[0, 200 // block]]).all()
+    assert torch.isinf(s6[[500 // block, 900 // block]]).all()
+
+
+def test_quantize_group_splits_at_the_table_limit(cuda):
+    gen = torch.Generator().manual_seed(43)
+    xs = [_randn(gen, 2, 3 + i % 300, dev=cuda)
+          for i in range(QB_MAX_LEAVES + 5)]
+    before = quantize.launches
+    got = quantize_group(xs)
+    torch.cuda.synchronize()
+    assert quantize.launches == before + 2
+    for x, (q, s) in zip(xs, got):
+        _assert_codes_match(x, q, s, 128)
+
+
+def test_quantize_group_rejects_bad_leaves(cuda):
+    x = torch.ones(2, 10, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        quantize_group([x, x], block=192)
+    with pytest.raises(TypeError, match="float32"):
+        quantize_group([x, x.double()])
+    with pytest.raises(ValueError, match="several devices"):
+        quantize_group([x, x.cpu()])
 
 
 @pytest.mark.parametrize("b,n", [(5, 110592), (5, 192), (2, 10), (3, 1001),
