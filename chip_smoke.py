@@ -15,15 +15,24 @@ to 0 just before it and read just after:
     ``fedpac_soap`` on the registered ``cifar_like_cnn``;
   * Sophia: ``local_sophia``, ``fedpac_sophia`` and ``fedpac_sophia`` with
     the qblock int8 wire on both channels and error feedback, at ViT-Tiny
-    width, and that last one on ``cifar_like_cnn``.
+    width, and that last one on ``cifar_like_cnn``;
+  * Muon: ``local_muon`` and ``fedpac_muon`` at ViT-Tiny width (default lr
+    3e-2), ``fedpac_soap`` with the Newton–Schulz refresh
+    (``eig_method="ns"``) at ViT-Tiny width, and ``fedpac_muon`` on
+    ``cifar_like_cnn``;
+  * the SGD baselines ``fedavg`` and ``fedcm`` on ``cifar_like_cnn``, whose
+    round metrics must all live on the card.
 
 Each path fails if one of its kernels was never launched, and unless
-SOAP's step is 5 ``matmul_fused`` launches, Sophia's step one
-``sophia_update`` launch and a qblock round 2 ``quantize`` launches (the
-delta and theta encodes) and 3 ``dequant_accumulate`` launches (the delta
-flush and theta's two).  The two CNN
-runs are repeated on the CPU (plain versions) from the same weights (and,
-for Sophia, the same Hutchinson probes), and the histories must agree.
+SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
+refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
+Sophia's step one ``sophia_update`` launch and a qblock round 2
+``quantize`` launches (the delta and theta encodes) and 3
+``dequant_accumulate`` launches (the delta flush and theta's two).  The
+CNN runs are repeated on the CPU (plain versions) from the same weights
+(and, for Sophia, the same Hutchinson probes), and the histories must
+agree.  The Newton–Schulz composition is checked product by product
+against ``matmul_fused``'s plain version and as a whole against its own.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
@@ -65,6 +74,14 @@ QBLOCK = dict(delta_codec="qblock", theta_codec="qblock",
               error_feedback=True)
 SOPHIA_TOL = {"loss": 1e-3, "test_loss": 1e-3, "test_acc": 2 / 768}
 SOPHIA_REL_TOL = {"drift": 1e-2, "norm_drift": 1e-2}
+# Muon, fedavg and fedcm on the CNN, GPU vs CPU: the same ten-fold margin
+# over the tolerances tests/test_torch_{muon,baselines}.py hold the port
+# to against the JAX package
+FIRST_ORDER_TOL, FIRST_ORDER_REL_TOL = SOPHIA_TOL, SOPHIA_REL_TOL
+# Newton–Schulz output vs its plain version: f32 against f64 of the same
+# composition differs by <= 8.4e-7 at the ViT-Tiny shapes (CPU), entries
+# are <= 0.3; the quintic map can grow a roundoff by up to 3.4445 a step
+NS_TOL = 1e-4
 CUDA_SOURCES = ("matmul_fused.cu", "sophia_update.cu", "qblock.cu",
                 "fused_agg.cu")
 
@@ -99,25 +116,30 @@ def timed(fn, reps=5, rounds=3):
     return sorted(samples)[len(samples) // 2]
 
 
-def device_ms(fn):
+def device_ms(fn, traces=3):
     """Summed device time (ms) of the CUDA kernels one call of ``fn``
     runs, from a ``torch.profiler`` trace: the work's cost on the card
-    without the host's launch cost, which ``timed`` includes."""
+    without the host's launch cost, which ``timed`` includes.  A trace
+    that comes back without the device's activity (seen once on a loaded
+    host) is taken again, up to ``traces`` times."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(traces):
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    attr = ("self_device_time_total"
-            if hasattr(events[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    us = sum(getattr(e, attr) for e in events
-             if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        attr = ("self_device_time_total"
+                if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        us = sum(getattr(e, attr) for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3
+        log("torch.profiler recorded no device time; tracing again")
+    raise AssertionError(f"torch.profiler recorded no device time in "
+                         f"{traces} traces")
 
 
 # ------------------------------------------------------------------ build
@@ -496,6 +518,69 @@ def check_dequant_accumulate(stacked_shapes, dev, gen):
     return worst
 
 
+def vit_matrix_leaves(dev, gen):
+    """Muon's 48 ViT-Tiny matrix leaves at S=5 (momentum-like normals)."""
+    return [torch.randn((S_VIT, m, n), generator=gen, device=dev)
+            for _ in range(VIT_TINY["layers"]) for m, n in VIT_LEAVES]
+
+
+def check_newton_schulz(mats):
+    """The composition on Muon's ViT-Tiny step: 15 ``matmul_fused``
+    launches, each of its products (captured with the kernel's own inputs)
+    within 2(k+2)u sum|a||b| of the plain ``matmul_fused``, and the output
+    within ``NS_TOL`` of ``newton_schulz_group_plain``."""
+    from repro_torch.kernels.ns_ortho import ops as ns_ops
+    from repro_torch.kernels.ns_ortho.kernel import (
+        matmul_fused, matmul_fused_group_plain,
+    )
+    captured = []
+    real = ns_ops.matmul_fused_group
+
+    def spy(problems):
+        outs = real(problems)
+        captured.append((problems, outs))
+        return outs
+
+    before = matmul_fused.launches
+    ns_ops.matmul_fused_group = spy
+    try:
+        got = ns_ops.newton_schulz_group(mats)
+    finally:
+        ns_ops.matmul_fused_group = real
+    made = matmul_fused.launches - before
+    if made != 15 or len(captured) != 15:
+        raise AssertionError(f"newton_schulz on {len(mats)} matrices: "
+                             f"{made} launches in {len(captured)} group "
+                             "calls, want 15")
+    worst_ratio = 0.0
+    for problems, outs in captured:
+        for p, out, want in zip(problems, outs,
+                                matmul_fused_group_plain(problems)):
+            err, ratio = gemm_error(out, *p, want)
+            worst_ratio = max(worst_ratio, ratio)
+            if ratio > 1.0:
+                raise AssertionError(
+                    f"newton_schulz product {tuple(p[0].shape)} @ "
+                    f"{tuple(p[1].shape)} exceeds its bound: max err "
+                    f"{err:.3e}, err/bound {ratio:.3f}")
+    worst = 0.0
+    for g, x, want in zip(mats, got, ns_ops.newton_schulz_group_plain(mats)):
+        if x.shape != g.shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"newton_schulz output {tuple(x.shape)} for "
+                                 f"{tuple(g.shape)}: wrong shape or "
+                                 "non-finite")
+        worst = max(worst, float((x - want).abs().max()))
+    if worst > NS_TOL:
+        raise AssertionError(f"newton_schulz vs plain: max |err| "
+                             f"{worst:.3e} > {NS_TOL}")
+    log(f"newton_schulz on {len(mats)} ViT-Tiny matrices (S={S_VIT}): 15 "
+        f"launches; each of {sum(len(p) for p, _ in captured)} products "
+        f"within its bound (max err/bound {worst_ratio:.3f}, bound "
+        f"2(k+2)u sum|a||b|); output vs plain max |err| {worst:.3e} "
+        f"(tol {NS_TOL})")
+    return worst
+
+
 # ----------------------------------------------------------------- timing
 
 def time_kernels(dev, gen):
@@ -670,6 +755,56 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
     return out
 
 
+def time_newton_schulz(mats):
+    """One ViT-Tiny Muon step's orthogonalisation at S=5 (48 matrices, 5
+    steps): the composition as Muon runs it (15 grouped launches), its
+    plain version, and cuBLAS through ``torch.bmm``/``baddbmm`` (one call
+    a product, 720 calls), beside the card's bound for the same work
+    (each input read and each output written once; the products'
+    operations at the FP32 rate)."""
+    from repro_torch.kernels.ns_ortho.ops import (
+        NS_COEFFS, newton_schulz_group, newton_schulz_group_plain,
+    )
+    a, b, c = NS_COEFFS
+
+    def library():
+        for g in mats:
+            x = g.transpose(1, 2) if g.shape[1] > g.shape[2] else g
+            x = x / (torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+                     + 1e-7)
+            for _ in range(5):
+                aa = torch.bmm(x, x.transpose(1, 2))
+                bb = torch.baddbmm(aa, aa, aa, beta=b, alpha=c)
+                x = torch.baddbmm(x, bb, x, beta=a)
+
+    flops = 0
+    for g in mats:
+        s, m, n = g.shape
+        m, n = min(m, n), max(m, n)
+        # X X^T (no epilogue), then c A A + b A (a multiply and an FMA
+        # an element), then B X + a X (one FMA an element)
+        flops += 5 * (2 * s * m * m * n
+                      + 2 * s * m * m * m + 3 * s * m * m
+                      + 2 * s * m * m * n + 2 * s * m * n)
+    bytes_ = 8 * sum(g.numel() for g in mats)
+    bound = max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S > flops / FP32_FLOPS \
+        else "operations"
+    fns = {"k": lambda: newton_schulz_group(mats),
+           "p": lambda: newton_schulz_group_plain(mats), "l": library}
+    t = {k: timed(fn) for k, fn in fns.items()}
+    d = {k: device_ms(fn) for k, fn in fns.items()}
+    log(f"newton_schulz, one Muon step of ViT-Tiny (S={S_VIT}, {len(mats)} "
+        f"matrices, 5 steps, {flops / 1e9:.1f} GFLOP): grouped (15 launches) "
+        f"{t['k']:.3f} ms, plain {t['p']:.3f} ms, torch.bmm/baddbmm (720 "
+        f"calls) {t['l']:.3f} ms; device time {d['k']:.3f} / {d['p']:.3f} / "
+        f"{d['l']:.3f} ms; bound {bound:.3f} ms ({by})")
+    return {"newton_schulz": dict(
+        ms=t["k"], plain_ms=t["p"], library_ms=t["l"], bound_ms=bound,
+        bound_by=by, device_ms=d["k"], plain_device_ms=d["p"],
+        library_device_ms=d["l"])}
+
+
 # -------------------------------------------------------------- main path
 
 def vit_tiny_spec():
@@ -714,6 +849,26 @@ def run_experiment(label, exp, expect=()):
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} was never launched")
     return exp.history, launches
+
+
+def metrics_on_card(exp):
+    """Wraps ``exp``'s round so that it fails unless every tensor metric of
+    the round (drift and norm_drift included) lives on the card."""
+    inner = exp.round_fn
+
+    def round_fn(*args):
+        out = inner(*args)
+        off = {k: str(v.device) for k, v in out[2].items()
+               if isinstance(v, torch.Tensor) and v.device.type != "cuda"}
+        missing = {"drift", "norm_drift", "loss", "beta"} - {
+            k for k, v in out[2].items() if isinstance(v, torch.Tensor)}
+        if off or missing:
+            raise AssertionError(f"round metrics off the card: {off}, not "
+                                 f"tensors: {sorted(missing)}")
+        return out
+
+    exp.round_fn = round_fn
+    return exp
 
 
 def compare_histories(label, want, got, tol, rel_tol):
@@ -783,17 +938,29 @@ def main_paths(vit_shapes, cnn_shapes):
     soap_k = ("matmul_fused", "adam_moments")
     wire_k = ("sophia_update", "quantize", "dequant_accumulate")
     total = dict.fromkeys(kernel_wrappers(), 0)
+    # newton_schulz launches no kernel of its own: its row carries the
+    # matmul_fused launches of the Muon paths, where every matmul_fused
+    # launch is a Newton-Schulz product
+    total["newton_schulz"] = 0
 
-    def drive(label, exp, expect):
+    def drive(label, exp, expect, mf_step=5, ns_step=0, ns_refresh=0):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
-        # SOAP's step is 5 grouped launches (the EMAs, 4 rotations),
-        # Sophia's one; a qblock round of an aligned algorithm encodes
-        # twice (delta, theta) and flushes 3 times (delta, theta twice)
+        if ns_step and not mf_step:
+            total["newton_schulz"] += launches["matmul_fused"]
+        # SOAP's step is 5 grouped launches (the EMAs, 4 rotations), and a
+        # Newton–Schulz refresh (once a round at K = precond_freq = 10) 15
+        # more; Muon's step 15 (3 grouped products a Newton–Schulz step);
+        # Sophia's step one; a qblock round of an aligned algorithm
+        # encodes twice (delta, theta) and flushes 3 times (delta, theta
+        # twice)
         steps = exp.fed.local_steps * exp.fed.rounds
+        ns = ns_step * steps + ns_refresh * exp.fed.rounds
         for name, want, what in (
-                ("matmul_fused", 5 * steps, "5 per local step"),
+                ("matmul_fused", mf_step * steps + ns,
+                 f"{mf_step + ns_step} per local step + {ns_refresh} per "
+                 "refresh"),
                 ("sophia_update", steps, "1 per local step"),
                 ("quantize", 2 * exp.fed.rounds, "2 per round"),
                 ("dequant_accumulate", 3 * exp.fed.rounds, "3 per round")):
@@ -838,6 +1005,31 @@ def main_paths(vit_shapes, cnn_shapes):
         build_experiment("fedpac_sophia", scenario=cnn_cpu, device="cpu",
                          **cnn_kw)))
     compare_histories(label, ref, cnn_gpu, SOPHIA_TOL, SOPHIA_REL_TOL)
+
+    # Muon on the grouped Newton-Schulz composition, and SOAP's NS refresh
+    muon_k = ("matmul_fused", "adam_moments")
+    for algo in ("local_muon", "fedpac_muon"):
+        exp = build_experiment(algo, scenario=vit, participation=0.5,
+                               rounds=ROUNDS)
+        if exp.lr != 3e-2:
+            raise AssertionError(f"{algo}: lr {exp.lr}, want Muon's 3e-2")
+        drive(f"vit_tiny {algo}", exp, muon_k, mf_step=0, ns_step=15)
+    drive("vit_tiny fedpac_soap eig_method=ns", build_experiment(
+        "fedpac_soap", scenario=vit, participation=0.5, rounds=ROUNDS,
+        opt_kwargs={"eig_method": "ns"}), muon_k, ns_refresh=15)
+
+    # the CNN against the CPU path: Muon (its stem conv flattens tall, so
+    # it is orthogonalised as its transpose), then the SGD baselines
+    for algo, expect, counts in (
+            ("fedpac_muon", muon_k, dict(mf_step=0, ns_step=15)),
+            ("fedavg", (), {}), ("fedcm", (), {})):
+        label = f"cifar_like_cnn {algo}"
+        cnn_gpu = drive(label, metrics_on_card(build_experiment(
+            algo, scenario=cnn, rounds=ROUNDS)), expect, **counts)
+        ref, _ = run_experiment(f"{label} (cpu reference)", build_experiment(
+            algo, scenario=cnn_cpu, rounds=ROUNDS, device="cpu"))
+        compare_histories(label, ref, cnn_gpu, FIRST_ORDER_TOL,
+                          FIRST_ORDER_REL_TOL)
     return total
 
 
@@ -873,8 +1065,12 @@ def main():
     errs["sophia_update"] = check_sophia_update(stacked, dev, gen)
     errs["quantize"] = check_quantize(stacked, dev, gen)
     errs["dequant_accumulate"] = check_dequant_accumulate(stacked, dev, gen)
+    mats = vit_matrix_leaves(dev, gen)
+    errs["newton_schulz"] = check_newton_schulz(mats)
     timings = time_kernels(dev, gen)
     timings.update(time_sophia_and_wire_kernels(vit_shapes, dev, gen))
+    timings.update(time_newton_schulz(mats))
+    del mats
     launches = main_paths(vit_shapes, cnn_shapes)
 
     meta = {
@@ -896,6 +1092,13 @@ def main():
         "dequant_accumulate": dict(
             route="cuda", source="src/repro_torch/kernels/csrc/fused_agg.cu",
             replaces="src/repro/kernels/fused_agg/kernel.py:39"),
+        # a composition of grouped matmul_fused launches (CUDA C++) with
+        # no launch of its own: its launches are matmul_fused's in the
+        # Muon paths, also counted in the matmul_fused row
+        "newton_schulz": dict(
+            route="cuda", source="src/repro_torch/kernels/ns_ortho/ops.py",
+            replaces="src/repro/kernels/ns_ortho/ops.py:31",
+            launches_of="matmul_fused"),
     }
     kernels = [dict(name=name, **meta[name], launches=launches[name],
                     max_abs_err=errs[name], **timings[name])

@@ -9,6 +9,10 @@ experiment builder — counterpart of ``repro/api.py`` (sync runtime only).
 
     exp = build_experiment("fedpac_soap", scenario="cifar_like_cnn",
                            device="cpu")           # plain PyTorch path
+
+Every registered algorithm builds the same way: ``fedavg``, ``fedcm``,
+and ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,soap,
+sophia}``; scenarios ``cifar_like_{cnn,vit}[_dir0.05|_shard|_iid]``.
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.core.algorithms import (  # noqa: F401  (re-exported API)
-    AlgorithmSpec, DuplicateAlgorithmError, UnknownAlgorithmError, register,
-    registered, resolve,
+    AlgorithmSpec, ClientStateSpec, DuplicateAlgorithmError,
+    UnknownAlgorithmError, register, registered, resolve,
 )
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.rounds import FedConfig, FederatedExperiment
@@ -33,6 +37,15 @@ from repro_torch.scenarios import (  # noqa: F401
     resolve as resolve_scenario,
 )
 from repro_torch.utils.hw import resolve_device
+
+__all__ = [
+    "AlgorithmSpec", "ClientStateSpec", "DuplicateAlgorithmError",
+    "DuplicateScenarioError", "FedConfig", "FedExperiment", "PartitionSpec",
+    "Scenario", "ScenarioSpec", "UnknownAlgorithmError",
+    "UnknownScenarioError", "build_experiment", "materialize", "register",
+    "register_scenario", "registered", "registered_scenarios", "resolve",
+    "resolve_scenario",
+]
 
 
 def build_experiment(

@@ -11,12 +11,14 @@ optimizer, alignment/correction policy, beta policy and upload codecs.
 
 on the fused wire path: the cohort's local rounds, the wire encode (with
 error feedback for a lossy delta codec), and the wire-native server flush
-(``engine.aggregate_wire``).  Ported so far: the SOAP and Sophia builtins
-(``local_*``, ``fedpac_*``, ``align_only_*``, ``correct_only_*``), the
-dense and qblock codecs, and error-feedback residuals as per-client state
-(``ClientStateSpec``, without the population store's export/import
-hooks).  Algorithm state (SCAFFOLD), mixing hooks (FedPM) and telemetry
-are not ported yet; ``telemetry=True`` is accepted and ignored.
+(``engine.aggregate_wire``).  Ported so far: ``fedavg`` and ``fedcm``
+(SGD; FedCM's beta pinned to 0.9), the ``local_*``, ``fedpac_*``,
+``align_only_*`` and ``correct_only_*`` builtins of every ported
+optimizer (SGD, AdamW, Muon, SOAP, Sophia), the dense and qblock codecs,
+and error-feedback residuals as per-client state (``ClientStateSpec``,
+without the population store's export/import hooks).  Algorithm state
+(SCAFFOLD), mixing hooks (FedPM) and telemetry are not ported yet;
+``telemetry=True`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -69,13 +71,18 @@ class AlgorithmSpec:
 
     Correction strength comes from ``FedConfig.beta`` (0 when the
     algorithm does not correct).
+    pinned_beta: algorithm-mandated correction strength overriding the
+      user's ``FedConfig.beta`` (FedCM's (1 - alpha) = 0.9).
+    default_lr: overrides the optimizer's table lr (``fed.lr`` still wins).
     """
     name: str
-    optimizer: str = "soap"
+    optimizer: str = "sgd"
     align: bool = False
     correct: bool = False
+    pinned_beta: Optional[float] = None
     upload: str = "dense"               # Theta codec spec
     delta_upload: str = "dense"         # delta codec spec
+    default_lr: Optional[float] = None
     description: str = ""
 
     def __post_init__(self):
@@ -83,10 +90,12 @@ class AlgorithmSpec:
         T.validate_codec_spec(self.delta_upload)
 
     def resolve_beta(self, requested: Union[float, str]):
-        """The one beta rule: no correction => 0; "auto" passes through
-        to the adaptive controller."""
+        """The one beta rule: no correction => 0; pinned (FedCM) wins;
+        "auto" passes through to the adaptive controller."""
         if not self.correct:
             return 0.0
+        if self.pinned_beta is not None:
+            return float(self.pinned_beta)
         if requested == "auto":
             return "auto"
         return float(requested)
@@ -293,6 +302,13 @@ def build_round_fn(
 # ------------------------------------------------------- built-in algorithms
 
 def _register_builtins():
+    register(AlgorithmSpec(
+        name="fedavg", optimizer="sgd",
+        description="SGD locally, parameter averaging"))
+    register(AlgorithmSpec(
+        name="fedcm", optimizer="sgd", correct=True, pinned_beta=0.9,
+        description="client momentum: correction-only SGD, beta pinned to "
+                    "(1 - alpha) = 0.9"))
     for opt_name in optim.available():
         register(AlgorithmSpec(
             name=f"local_{opt_name}", optimizer=opt_name,

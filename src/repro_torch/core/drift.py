@@ -11,12 +11,14 @@ import torch
 from repro_torch.utils.tree import tree_leaves
 
 
-def drift_metric(thetas):
-    """Scalar Frobenius drift over all Theta leaves. thetas: stacked (S,...)."""
-    total = None
+def drift_metric(thetas, device):
+    """Scalar Frobenius drift over all Theta leaves. thetas: stacked (S,...).
+    A Theta with no leaves (SGD without momentum) has drift 0, on the
+    run's ``device``."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
     for leaf in tree_leaves(thetas):
         x = leaf.to(torch.float32)
         c = x - x.mean(dim=0, keepdim=True)
-        term = torch.mean(torch.sum(c.reshape(c.shape[0], -1) ** 2, dim=-1))
-        total = term if total is None else total + term
-    return total if total is not None else torch.zeros(())
+        total = total + torch.mean(
+            torch.sum(c.reshape(c.shape[0], -1) ** 2, dim=-1))
+    return total

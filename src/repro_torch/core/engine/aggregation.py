@@ -80,7 +80,8 @@ def aggregate(params, theta, g_global, deltas, thetas, weights,
     w = weights.to(torch.float32)
     delta_wsum = client_weighted_sum(deltas, w)
     theta_stats = (None if thetas is None else
-                   (drift_metric(thetas), client_weighted_sum(thetas, w)))
+                   (drift_metric(thetas, w.device),
+                    client_weighted_sum(thetas, w)))
     return _finish_update(params, theta, g_global, delta_wsum, w, cfg,
                           theta_stats)
 
@@ -121,7 +122,7 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
         if tmsgs is not None:
             thetas = transport.theta.decode(tmsgs)
         theta_stats = (None if thetas is None else
-                       (drift_metric(thetas),
+                       (drift_metric(thetas, w.device),
                         client_weighted_sum(thetas, w)))
     out = _finish_update(params, theta, g_global, delta_wsum, w, cfg,
                          theta_stats)

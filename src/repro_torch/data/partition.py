@@ -3,10 +3,12 @@ so the port splits clients bit for bit as the reference does.
 
 ``dirichlet_partition`` (Hsu et al. 2019) is the paper's severity control:
 smaller alpha => more severe label skew (Dir-0.1, Dir-0.05 in the tables).
-``iid_partition`` is the uniform control.  Both return a list of
-``n_clients`` index arrays covering every sample exactly once and are
-deterministic in ``seed``.  The shard, quantity and streamed kinds are not
-ported yet.
+``shard_partition`` is the pathological label split of McMahan et al.
+2017, ``quantity_partition`` label-IID clients of Dirichlet-skewed sizes,
+and ``iid_partition`` the uniform control.  Each returns a list of
+``n_clients`` index arrays covering every sample exactly once and is
+deterministic in ``seed``.  The streamed kind (``stream_dirichlet``,
+``ClientIndexMap``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -75,6 +77,54 @@ def iid_partition(n_samples: int, n_clients: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     idx = rng.permutation(n_samples)
     return np.array_split(idx, n_clients)
+
+
+def shard_partition(labels: np.ndarray, n_clients: int,
+                    shards_per_client: int = 2, seed: int = 0):
+    """Pathological label split: sort by label, deal shards to clients.
+
+    With ``shards_per_client`` small each client sees only a handful of
+    classes — the classic extreme non-IID setting of McMahan et al. 2017.
+    """
+    if shards_per_client < 1:
+        raise ValueError(
+            f"shards_per_client must be >= 1, got {shards_per_client}")
+    labels = np.asarray(labels)
+    n_shards = n_clients * shards_per_client
+    if n_shards > len(labels):
+        raise ValueError(
+            f"shard_partition is infeasible: {n_shards} shards for "
+            f"{len(labels)} samples")
+    rng = np.random.default_rng(seed)
+    order = np.argsort(labels, kind="stable")
+    shards = np.array_split(order, n_shards)
+    deal = rng.permutation(n_shards)
+    parts = []
+    for i in range(n_clients):
+        own = deal[i * shards_per_client:(i + 1) * shards_per_client]
+        p = np.concatenate([shards[s] for s in own])
+        rng.shuffle(p)
+        parts.append(p)
+    return parts
+
+
+def quantity_partition(n_samples: int, n_clients: int, alpha: float = 0.5,
+                       seed: int = 0, min_size: int = 1):
+    """Quantity skew: label-IID clients with Dirichlet(alpha)-skewed sizes."""
+    if alpha <= 0:
+        raise ValueError(f"alpha must be > 0, got {alpha}")
+    if n_clients * min_size > n_samples:
+        raise ValueError(
+            f"quantity_partition is infeasible: n_clients={n_clients} x "
+            f"min_size={min_size} needs {n_clients * min_size} samples but "
+            f"only {n_samples} are available")
+    rng = np.random.default_rng(seed)
+    props = rng.dirichlet(np.full(n_clients, alpha))
+    spare = n_samples - n_clients * min_size
+    cuts = (np.cumsum(props) * spare).astype(int)[:-1]
+    sizes = np.diff(np.concatenate([[0], cuts, [spare]])) + min_size
+    idx = rng.permutation(n_samples)
+    return np.split(idx, np.cumsum(sizes)[:-1])
 
 
 def heterogeneity_stat(parts, labels, n_classes=None) -> float:

@@ -106,13 +106,16 @@ class FedConfig:
 
 def resolve_lr(fed: FedConfig, spec_or_opt: Union[AlgorithmSpec, str]
                ) -> float:
-    """Explicit fed.lr wins (falsy values too), then the optimizer's
-    paper-table default."""
+    """Explicit fed.lr wins (falsy values too), then the spec's declared
+    default_lr, then the optimizer's paper-table default (1e-2 for an
+    optimizer the table does not name)."""
     if fed.lr is not None:
         return fed.lr
     if isinstance(spec_or_opt, AlgorithmSpec):
+        if spec_or_opt.default_lr is not None:
+            return spec_or_opt.default_lr
         spec_or_opt = spec_or_opt.optimizer
-    return optim.DEFAULT_LR[spec_or_opt]
+    return optim.DEFAULT_LR.get(spec_or_opt, 1e-2)
 
 
 class FederatedExperiment(FedExperiment):

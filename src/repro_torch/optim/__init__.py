@@ -1,12 +1,15 @@
-"""Local optimizers implementing the paper's (Theta, P_Theta) abstraction.
-
-SOAP and Sophia are ported so far; sgd, adamw and muon follow."""
+"""Local optimizers implementing the paper's (Theta, P_Theta) abstraction
+(counterpart of ``repro/optim/__init__.py``): SGD, AdamW, Muon, SOAP and
+Sophia, all ported."""
 from repro_torch.optim.api import (  # noqa: F401
     LocalOptimizer, as_matrix, is_hidden_matrix, matrix_mask,
 )
-from repro_torch.optim import soap, sophia
+from repro_torch.optim import adamw, muon, sgd, soap, sophia
 
 _FACTORIES = {
+    "sgd": sgd.make,
+    "adamw": adamw.make,
+    "muon": muon.make,
     "soap": soap.make,
     "sophia": sophia.make,
 }
@@ -14,7 +17,7 @@ _FACTORIES = {
 
 def make(name: str, **kw) -> LocalOptimizer:
     if name not in _FACTORIES:
-        raise ValueError(f"optimizer {name!r} is not ported (want one of "
+        raise ValueError(f"unknown optimizer {name!r} (want one of "
                          f"{available()})")
     return _FACTORIES[name](**kw)
 
@@ -25,6 +28,9 @@ def available() -> tuple:
 
 
 DEFAULT_LR = {  # paper's Appendix Table 8 defaults
+    "sgd": 0.1,
+    "adamw": 3e-4,
     "sophia": 3e-4,
+    "muon": 3e-2,
     "soap": 3e-3,
 }

@@ -2,7 +2,11 @@
 
 Shampoo-style Kronecker factors L = EMA[G G^T], R = EMA[G^T G]; eigenbasis
 (Q_L, Q_R) refreshed by one QR power iteration every ``precond_freq``
-steps; Adam run in the rotated basis.  Theta = {L, R}.
+steps (``eig_method="qr"``, the paper's Alg. 4) or by Newton–Schulz
+orthogonalisation of the same power-iteration product
+(``eig_method="ns"``, matmuls only; other numerics, so an option and not
+the default, as in the reference); Adam run in the rotated basis.
+Theta = {L, R}.
 
 Matrices with a dimension above ``max_precond_dim`` go one-sided (identity
 on that side); 3-D expert tensors are batched matrices; non-matrix leaves
@@ -16,31 +20,35 @@ over all matrix leaves so each product phase is one grouped
 beta = b2, aux = L/R), then Q_L^T G, G Q_R, ``adam_moments`` per leaf, Q_L
 N and N Q_R^T — the per-leaf math and order of ``soap_rotated_update``.  A
 ViT-Tiny step is 5 launches of ``matmul_fused`` instead of 288.  The Adam
-fallback goes through ``adam_moments``.  The refresh product P @ Q and the
-QR stay library calls, as the reference leaves them to XLA.
+fallback goes through ``adam_moments``.  The refresh product P @ Q stays
+a library call, as the reference leaves it to XLA; so does the QR.  The
+``"ns"`` refresh orthogonalises every side of every matrix leaf in one
+``newton_schulz_group`` call: 15 more ``matmul_fused`` launches a refresh.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ns_ortho.kernel import matmul_fused_group
+from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
 from repro_torch.optim.api import LocalOptimizer, as_matrix, matrix_mask
 from repro_torch.utils.tree import (
-    tree_flatten_with_path, tree_map, tree_map_with_path,
+    tree_flatten_with_path, tree_get, tree_map, tree_map_with_path,
 )
 
 
-def _eig_refresh(p_mat, q):
-    """Eigenvectors(P, Q): one power iteration + QR (the paper's Alg. 4)."""
-    q_new, _ = torch.linalg.qr(torch.matmul(p_mat, q))
-    return q_new
+EIG_METHODS = ("qr", "ns")
 
 
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
+def _eig_refresh(pairs, method: str):
+    """Eigenvectors(P, Q) for every (P, Q) of ``pairs``: one power
+    iteration, then QR (the paper's Alg. 4) matrix by matrix, or
+    Newton–Schulz over all of them in one grouped call."""
+    prods = [torch.matmul(p_mat, q) for p_mat, q in pairs]
+    if method == "ns":
+        return newton_schulz_group(prods)
+    return [torch.linalg.qr(s)[0] for s in prods]
 
 
 def _is_state_leaf(x):
@@ -50,7 +58,10 @@ def _is_state_leaf(x):
 def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
          precond_freq: int = 10, max_precond_dim: int = 8192,
          weight_decay: float = 0.0, adam_b1: float = 0.9,
-         adam_b2: float = 0.999) -> LocalOptimizer:
+         adam_b2: float = 0.999, eig_method: str = "qr") -> LocalOptimizer:
+    if eig_method not in EIG_METHODS:
+        raise ValueError(f"eig_method must be one of {EIG_METHODS}, got "
+                         f"{eig_method!r}")
 
     def _leaf_state(p, is_mat, lead):
         if not is_mat:
@@ -106,13 +117,14 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                     slots.append((i, key))
         for (i, key), x in zip(slots, matmul_fused_group(problems)):
             new[i][key] = x
-        # 2. the scheduled eigenbasis refresh (a library QR, as the
-        #    reference leaves it to XLA)
+        # 2. the scheduled eigenbasis refresh, every side of every leaf
         if step % precond_freq == 0:
-            for st in new:
-                for q, f in (("QL", "L"), ("QR", "R")):
-                    if q in st:
-                        st[q] = _eig_refresh(st[f], st[q])
+            sides = [(st, q, f) for st in new
+                     for q, f in (("QL", "L"), ("QR", "R")) if q in st]
+            qs = _eig_refresh([(st[f], st[q]) for st, q, f in sides],
+                              eig_method)
+            for (st, q, _), q_new in zip(sides, qs):
+                st[q] = q_new
         # 3-4. G' = Q_L^T G Q_R
         rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))
         rot = _phase(rot, new, "QR", lambda q, g: (g, q))
@@ -136,15 +148,16 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         mats = []                        # (path, orig_shape) of matrix leaves
         gs, states = [], []
         for path, p in tree_flatten_with_path(params):
-            g = _get(grads, path)
-            if _get(mask, path):
+            g = tree_get(grads, path)
+            if tree_get(mask, path):
                 gm, orig_shape = as_matrix(g.to(torch.float32), lead)
                 mats.append((path, orig_shape))
                 gs.append(gm)
-                states.append(_get(state["mat"], path))
+                states.append(tree_get(state["mat"], path))
             else:
                 d, am, av = adam_moments(
-                    g, _get(state["am"], path), _get(state["av"], path),
+                    g, tree_get(state["am"], path),
+                    tree_get(state["av"], path),
                     b1=adam_b1, b2=adam_b2, eps=1e-8, step=step)
                 out[path] = (d, None, am, av)
         ds, news = _matrix_updates(gs, states, step)

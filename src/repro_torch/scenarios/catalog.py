@@ -1,11 +1,12 @@
 """The registered scenario catalog (counterpart of
 ``repro/scenarios/catalog.py``, vision families only):
 
-  cifar_like_cnn[_dir0.05|_iid]   CNN on CIFAR-like images
-  cifar_like_vit[_dir0.05|_iid]   ViT on the same images
+  cifar_like_cnn[_dir0.05|_shard|_iid]   CNN on CIFAR-like images
+  cifar_like_vit[_dir0.05|_shard|_iid]   ViT on the same images
 
-The base names carry the paper's default severity, Dirichlet(0.1).  The
-``shard`` variants and the ``lm_zipf`` family are not ported yet.
+The base names carry the paper's default severity, Dirichlet(0.1);
+``_shard`` deals two label-sorted shards to each client.  The ``lm_zipf``
+family is not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def cifar_like(*, model: str = "cnn", n: int = 3000, image_size: int = 12,
 
 VARIANTS = (
     ("dir0.05", PartitionSpec("dirichlet", alpha=0.05)),
+    ("shard", PartitionSpec("shard", shards_per_client=2)),
     ("iid", PartitionSpec("iid")),
 )
 

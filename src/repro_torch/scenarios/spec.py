@@ -5,7 +5,8 @@ A frozen ``ScenarioSpec`` declares data source x partition x model x
 batching; ``materialize`` (``scenarios.registry``) turns it into the
 concrete ``Scenario`` bundle that ``repro_torch.api.build_experiment``
 consumes.  ``PartitionSpec`` is the heterogeneity control; the
-``dirichlet`` and ``iid`` kinds are ported.
+``dirichlet``, ``shard``, ``quantity`` and ``iid`` kinds are ported (the
+lazy ``stream_dirichlet`` kind is not).
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
 
-from repro_torch.data.partition import dirichlet_partition, iid_partition
+from repro_torch.data.partition import (
+    dirichlet_partition, iid_partition, quantity_partition, shard_partition,
+)
 
 
 class UnknownScenarioError(ValueError):
@@ -25,15 +28,18 @@ class DuplicateScenarioError(ValueError):
     """``register`` called twice for the same scenario name."""
 
 
-PARTITION_KINDS = ("dirichlet", "iid")
+PARTITION_KINDS = ("dirichlet", "shard", "quantity", "iid")
 
 
 @dataclasses.dataclass(frozen=True)
 class PartitionSpec:
     """How samples are split across clients: ``kind`` one of
-    ``PARTITION_KINDS``; ``alpha`` the Dirichlet concentration."""
+    ``PARTITION_KINDS``; ``alpha`` the Dirichlet concentration for
+    ``dirichlet`` (label skew) and ``quantity`` (size skew);
+    ``shards_per_client`` drives the pathological ``shard`` split."""
     kind: str = "dirichlet"
     alpha: float = 0.1
+    shards_per_client: int = 2
     min_size: int = 2
 
     def __post_init__(self):
@@ -41,25 +47,40 @@ class PartitionSpec:
             raise ValueError(
                 f"unknown or unported partition kind {self.kind!r} "
                 f"(want one of {PARTITION_KINDS})")
-        if self.kind == "dirichlet" and self.alpha <= 0:
+        if self.kind in ("dirichlet", "quantity") and self.alpha <= 0:
             raise ValueError(f"alpha must be > 0, got {self.alpha}")
+        if self.shards_per_client < 1:
+            raise ValueError(
+                f"shards_per_client must be >= 1, got "
+                f"{self.shards_per_client}")
 
     def build(self, labels: Optional[np.ndarray], n_samples: int,
               n_clients: int, seed: int):
         """A list of ``n_clients`` index arrays."""
         if self.kind == "iid":
             return iid_partition(n_samples, n_clients, seed=seed)
+        if self.kind == "quantity":
+            return quantity_partition(n_samples, n_clients, self.alpha,
+                                      seed=seed, min_size=self.min_size)
         if labels is None:
             raise ValueError(
                 f"partition kind {self.kind!r} needs labels, but this "
                 "scenario's data source provides none")
-        return dirichlet_partition(labels, n_clients, self.alpha, seed=seed,
-                                   min_size=self.min_size)
+        if self.kind == "dirichlet":
+            return dirichlet_partition(labels, n_clients, self.alpha,
+                                       seed=seed, min_size=self.min_size)
+        return shard_partition(labels, n_clients,
+                               shards_per_client=self.shards_per_client,
+                               seed=seed)
 
     def tag(self) -> str:
         """Short name for sweep rows / derived-variant names."""
         if self.kind == "dirichlet":
             return f"dir{self.alpha:g}"
+        if self.kind == "quantity":
+            return f"qty{self.alpha:g}"
+        if self.kind == "shard":
+            return f"shard{self.shards_per_client}"
         return "iid"
 
 

@@ -31,6 +31,13 @@ def tree_flatten_with_path(tree, path=()):
     return out
 
 
+def tree_get(tree, path):
+    """The subtree at ``path``, a key tuple of ``tree_flatten_with_path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def tree_leaves(tree):
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
 

@@ -25,6 +25,14 @@ Tolerances:
     compared).
   * dequant_accumulate (one leaf or a group): 4 B u sum_i |w_i s_i q_i|
     per element (B f32 products summed in another order).
+  * newton_schulz_group: each of its 15 products within the matmul_fused
+    bound above on the kernel's own inputs; the output within 1e-4 of
+    the plain composition (f32 against f64 of the same composition
+    differs by <= 8.4e-7 at ViT-Tiny shapes; entries are <= 0.3).
+  * Muon's step on the card against the same step on the CPU: 1e-4
+    absolute + 1e-4 relative on directions (the Newton–Schulz output
+    above, scaled by sqrt(rows/cols) <= 2) and 1e-5 max(1, |x|) on the
+    moments (elementwise).
 """
 import os
 import pathlib
@@ -48,6 +56,7 @@ from repro_torch.kernels.fused_agg.kernel import (
 from repro_torch.kernels.qblock.kernel import (
     MAX_LEAVES as QB_MAX_LEAVES, quantize, quantize_group, quantize_plain,
 )
+from repro_torch.kernels.ns_ortho import ops as ns_ops
 from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
 from repro_torch.kernels.sophia_update.kernel import (
     MAX_LEAVES as SU_MAX_LEAVES, sophia_update, sophia_update_group,
@@ -188,6 +197,86 @@ def test_matmul_fused_group_rejects_bad_problems(cuda):
     with pytest.raises(ValueError, match="several devices"):
         matmul_fused_group([(x, x, None, 1.0, 0.0),
                             (x.cpu(), x.cpu(), None, 1.0, 0.0)])
+
+
+def test_newton_schulz_group_kernel_matches_plain(cuda, monkeypatch):
+    """One ViT-Tiny block's four matrix leaves (w2 tall, so transposed) at
+    S=5, a CNN stem's (27, 8) and a 3-D expert stack: 15 launches, every
+    product within its bound, the output within 1e-4 of the plain
+    composition."""
+    gen = torch.Generator().manual_seed(23)
+    mats = [_randn(gen, *shape, dev=cuda) for shape in
+            ((5, 192, 576), (5, 192, 192), (5, 192, 768), (5, 768, 192),
+             (2, 27, 8), (2, 3, 10, 24))]
+    mats[1][1] *= 100.0                  # a client 100x the others' norm
+    captured = []
+    real = ns_ops.matmul_fused_group
+
+    def spy(problems):
+        outs = real(problems)
+        captured.append((problems, outs))
+        return outs
+
+    monkeypatch.setattr(ns_ops, "matmul_fused_group", spy)
+    before = matmul_fused.launches
+    got = ns_ops.newton_schulz_group(mats)
+    torch.cuda.synchronize()
+    assert matmul_fused.launches == before + 15
+    assert len(captured) == 15
+    for problems, outs in captured:
+        _assert_group_close(problems, outs)
+    want = ns_ops.newton_schulz_group_plain([m.cpu() for m in mats])
+    for m, g, w in zip(mats, got, want):
+        assert g.shape == m.shape and g.is_cuda
+        assert float((g.cpu() - w).abs().max()) <= 1e-4
+
+
+def test_muon_step_on_the_card_matches_the_cpu_step(cuda):
+    """Two local steps of Muon over a cohort-stacked ViT block (S=3) and
+    an Adam-fallback leaf: the card's step (15 launches a step) against
+    the same step on the CPU."""
+    from repro_torch.optim import muon
+
+    gen = torch.Generator().manual_seed(29)
+    shapes = {"blk": {"wqkv": (3, 48, 144), "wo": (3, 48, 48),
+                      "w1": (3, 48, 192), "w2": (3, 192, 48)},
+              "norm": {"scale": (3, 48)}}
+
+    def draw():
+        return {a: {b: torch.randn(sh, generator=gen)
+                    for b, sh in v.items()} for a, v in shapes.items()}
+
+    def to(tree, dev):
+        return {a: {b: None if x is None else x.to(dev)
+                    for b, x in v.items()} for a, v in tree.items()}
+
+    params, grads = draw(), [draw(), draw()]
+    opt = muon.make()
+    sts = {d: opt.init(to(params, d), lead=1) for d in ("cpu", cuda)}
+    for k, g in enumerate(grads):
+        out = {}
+        for d in ("cpu", cuda):
+            before = matmul_fused.launches
+            out[d], sts[d] = opt.update(to(g, d), sts[d], to(params, d), k,
+                                        lead=1)
+            if d == cuda:
+                torch.cuda.synchronize()
+                assert matmul_fused.launches == before + 15
+        got_dir = to(out[cuda], "cpu")
+        for a, v in out["cpu"].items():
+            for b, want in v.items():
+                torch.testing.assert_close(got_dir[a][b], want, rtol=1e-4,
+                                           atol=1e-4)
+        for name in ("m", "am", "av"):
+            got_st = to(sts[cuda][name], "cpu")
+            for a, v in sts["cpu"][name].items():
+                for b, want in v.items():
+                    got = got_st[a][b]
+                    assert (got is None) == (want is None)
+                    if want is not None:
+                        err = (got - want).abs()
+                        assert bool((err <= 1e-5 * want.abs().clamp(
+                            min=1.0)).all()), (name, a, b)
 
 
 @pytest.mark.parametrize("shape", [(5, 192, 576), (7,), (3, 40, 50)])

@@ -1,7 +1,7 @@
 """Profile one sync round of the PyTorch port on the GPU.
 
     python3 tools/profile_torch_round.py [--algorithm NAME] [--qblock]
-                                         [--out DIR]
+                                         [--eig-method qr|ns] [--out DIR]
 
 Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
 0.5, K=10; ``fedpac_soap`` by default, Sophia at lr 2e-2 and
@@ -10,8 +10,9 @@ uploads on the int8 wire with error feedback), warms up one round, then
 traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
-(kernel time over wall time), device time grouped by kind of work, and the
-top operators by device time and by host time.  The full tables go to
+(kernel time over wall time), device time grouped by kind of work (with
+the largest kernels of each group, so the grouping can be checked), and
+the top operators by device time and by host time.  The full tables go to
 ``<out>/profile_round.txt`` (default ``build/profile/``, gitignored).
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -33,8 +34,11 @@ GROUPS = [
     ("sophia_update kernel", ("sophia_update",)),
     ("quantize kernel", ("qblock_quantize",)),
     ("dequant_accumulate kernel", ("dequant_accumulate",)),
-    ("QR refresh (geqrf/orgqr/householder)",
-     ("geqrf", "orgqr", "householder", "larft", "larfb", "qr")),
+    # cuSOLVER's and MAGMA's own kernel names; a bare "qr" would also
+    # match "sqrt"
+    ("QR refresh (cuSOLVER geqrf/orgqr)",
+     ("geqr", "orgqr", "ungqr", "orgbr", "larf", "householder", "cusolver",
+      "magma")),
     ("GEMM (cuBLAS: model, refresh product)", ("gemm", "sgemm", "cutlass",
                                                "xmma", "gemv")),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit")),
@@ -49,6 +53,8 @@ def main():
     ap.add_argument("--algorithm", default="fedpac_soap")
     ap.add_argument("--qblock", action="store_true",
                     help="qblock codec on both uploads, error feedback on")
+    ap.add_argument("--eig-method", choices=("qr", "ns"), default=None,
+                    help="SOAP's eigenbasis refresh (default: SOAP's, qr)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -68,9 +74,11 @@ def main():
     kw = dict(QBLOCK) if args.qblock else {}
     if resolve(args.algorithm).optimizer == "sophia":
         kw.update(lr=SOPHIA_LR, hessian_freq=10)
+    opt_kwargs = ({} if args.eig_method is None
+                  else {"eig_method": args.eig_method})
     exp = build_experiment(args.algorithm, scenario=scn, participation=0.5,
-                           rounds=3, **kw)
-    print(f"{args.algorithm} {kw}")
+                           rounds=3, opt_kwargs=opt_kwargs, **kw)
+    print(f"{args.algorithm} {kw} {opt_kwargs}")
     exp.run_round()                      # warm-up: compiles, allocator
     t0 = time.perf_counter()
     exp.run_round()
@@ -98,17 +106,18 @@ def main():
           f"device busy {100 * total_ms / 1e3 / wall:.1f}% of the traced "
           f"wall time")
     grouped = collections.Counter()
-    for name, us in kernel_us.items():
+    members = collections.defaultdict(list)
+    for name, us in kernel_us.most_common():
         low = name.lower()
-        for label, pats in GROUPS:
-            if any(p in low for p in pats):
-                grouped[label] += us
-                break
-        else:
-            grouped["other"] += us
+        label = next((lb for lb, pats in GROUPS
+                      if any(p in low for p in pats)), "other")
+        grouped[label] += us
+        members[label].append((name, us))
     for label, us in grouped.most_common():
         print(f"  {label:42s} {us / 1e3:9.2f} ms "
               f"({100 * us / 1e3 / max(total_ms, 1e-9):5.1f}%)")
+        for name, k_us in members[label][:6]:   # what each group holds
+            print(f"      {k_us / 1e3:9.2f} ms  {name[:90]}")
     by_dev = events.table(sort_by=dev_attr, row_limit=25)
     by_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
     print(by_dev)
