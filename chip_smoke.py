@@ -21,14 +21,24 @@ to 0 just before it and read just after:
     (``eig_method="ns"``) at ViT-Tiny width, and ``fedpac_muon`` on
     ``cifar_like_cnn``;
   * the SGD baselines ``fedavg`` and ``fedcm`` on ``cifar_like_cnn``, whose
-    round metrics must all live on the card.
+    round metrics must all live on the card;
+  * the low-rank wire: ``fedpac_soap_light`` (rank-4 SVD Theta upload,
+    Table 6's rank) and ``fedpac_muon_light`` with the qblock delta, the
+    ``lowrank_svd+qblock`` Theta chain on the bf16 wire and error
+    feedback (bf16 factors into the CUDA ``quantize``), at ViT-Tiny
+    width; ``scaffold``, ``fedpm_soap`` and ``fedpac_soap`` with the
+    ``power_sketch`` Theta upload on ``cifar_like_cnn``, whose round
+    metrics must all live on the card.
 
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
 refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
 Sophia's step one ``sophia_update`` launch and a qblock round 2
 ``quantize`` launches (the delta and theta encodes) and 3
-``dequant_accumulate`` launches (the delta flush and theta's two).  The
+``dequant_accumulate`` launches (the delta flush and theta's two; 1 with
+the ``lowrank_svd+qblock`` Theta chain, whose flush peels to the
+low-rank merged GEMM).  On the paths added with the low-rank wire the
+round's ``upload_bytes`` must equal ``comm_bytes_per_round()``.  The
 CNN runs are repeated on the CPU (plain versions) from the same weights
 (and, for Sophia, the same Hutchinson probes), and the histories must
 agree.  The Newton–Schulz composition is checked product by product
@@ -39,6 +49,7 @@ last, ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
 on a host without CUDA, and outside a checkout of the repository.
 Imports nothing of JAX.
 """
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -78,6 +89,20 @@ SOPHIA_REL_TOL = {"drift": 1e-2, "norm_drift": 1e-2}
 # over the tolerances tests/test_torch_{muon,baselines}.py hold the port
 # to against the JAX package
 FIRST_ORDER_TOL, FIRST_ORDER_REL_TOL = SOPHIA_TOL, SOPHIA_REL_TOL
+# fedpm_soap on the CNN runs SOAP's "ns" refresh: with the QR refresh its
+# GPU-vs-CPU gap sits at SOAP's tolerances (1.09x in loss at seed 0), and
+# a planted 1% fault in adam_moments lands barely above it; with "ns" the
+# gap is 0.03x and the fault 1.1-1.4x (tools/gpu_cpu_gap.py, PERF.md §6)
+FEDPM_OPT = {"eps": CNN_EPS, "eig_method": "ns"}
+# the low-rank wire: Table 6's rank; the Muon path's codecs (on the CNN's
+# Muon momentum, in the chain's quantize check, rank 4 compresses the two
+# skip matrices and passes the 3 x 8 stem through dense).  SOAP's CNN
+# factors (8 to 32 wide, square) take rank 8, where the 8 x 8 ones pass
+# through dense and the rest compress
+LIGHT_RANK = 4
+CNN_SOAP_RANK = 8
+MUON_LIGHT = dict(delta_codec="qblock", theta_codec="lowrank_svd+qblock",
+                  wire_dtype="bf16", error_feedback=True, svd_rank=LIGHT_RANK)
 # Newton–Schulz output vs its plain version: f32 against f64 of the same
 # composition differs by <= 8.4e-7 at the ViT-Tiny shapes (CPU), entries
 # are <= 0.3; the quintic map can grow a roundoff by up to 3.4445 a step
@@ -435,25 +460,18 @@ def tied_rows(rows, n, dev, gen, block=128):
     return x
 
 
-def check_quantize(stacked_shapes, dev, gen):
-    """Kernel vs plain on every leaf (rows = clients), in one grouped
-    launch and one leaf a launch: q and scale bitwise equal.  The first
-    leaves hold NaN and +-inf, whose blocks must get the plain version's
-    NaN or inf scale (their codes, a NaN cast to int8, are not
-    compared)."""
+def quantize_agrees(label, xs):
+    """Kernel vs plain on the (rows, n) f32 leaves ``xs``, in one grouped
+    launch and one leaf a launch: q and scale bitwise equal (the codes of
+    a block whose scale is NaN or inf, a NaN cast to int8, are not
+    compared).  Returns the number of such blocks."""
     from repro_torch.kernels.qblock.kernel import (
         quantize, quantize_group, quantize_plain,
     )
-    xs = [tied_rows(shape[0], math.prod(shape[1:]), dev, gen)
-          for shape in stacked_shapes]
-    nonfinite = torch.tensor([float("nan"), float("inf"), -float("inf")])
-    for x in xs[:4]:
-        x.view(-1)[-3:] = nonfinite
-    ragged = sum(x.shape[1] % 128 != 0 for x in xs)
     before = quantize.launches
     grouped = quantize_group(xs)
     if quantize.launches != before + 1:
-        raise AssertionError(f"one group of {len(xs)} leaves took "
+        raise AssertionError(f"{label}: one group of {len(xs)} leaves took "
                              f"{quantize.launches - before} launches")
     special = 0
     for x, got_g in zip(xs, grouped):
@@ -465,13 +483,89 @@ def check_quantize(stacked_shapes, dev, gen):
             bad = int((q[ok_q] != wq[ok_q]).sum()) + bits_differ(s, ws)
             if bad:
                 raise AssertionError(
-                    f"quantize ({form}) at {tuple(x.shape)}: {bad} values "
-                    "differ from the plain version")
+                    f"{label}: quantize ({form}) at {tuple(x.shape)}: {bad} "
+                    "values differ from the plain version")
+    return special
+
+
+def check_quantize(stacked_shapes, dev, gen):
+    """Kernel vs plain on every leaf (rows = clients), in one grouped
+    launch and one leaf a launch: q and scale bitwise equal.  The first
+    leaves hold NaN and +-inf, whose blocks must get the plain version's
+    NaN or inf scale."""
+    xs = [tied_rows(shape[0], math.prod(shape[1:]), dev, gen)
+          for shape in stacked_shapes]
+    nonfinite = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for x in xs[:4]:
+        x.view(-1)[-3:] = nonfinite
+    ragged = sum(x.shape[1] % 128 != 0 for x in xs)
+    special = quantize_agrees("model leaves", xs)
     log(f"quantize vs plain on {len(xs)} leaves, grouped (one launch) and "
         f"one leaf a launch: q and scale bitwise equal ({ragged} leaves "
         f"with a ragged tail, ties and zero blocks in each; {special} "
         "blocks with NaN or inf, scales equal)")
     return 0.0
+
+
+def check_chain_quantize(dev, gen):
+    """``quantize`` on what the ``lowrank_svd+qblock`` Theta chain of
+    ``fedpac_muon_light`` hands it: Muon's momentum (normals) at
+    ViT-Tiny (S=5; 48 matrices, all low-rank at rank 4) and on the CNN
+    (S=2; its stem conv, 3 x 8 matrices, passes through dense), encoded
+    by the chain's first stage (rank 4, bf16 wire), its bf16 payloads cast
+    to f32 as ``QBlock`` casts them.  Kernel vs plain bitwise, grouped and
+    one leaf a launch, then the chain's ``QBlock`` stage (one launch)
+    against the plain version of the same rows."""
+    from repro_torch.core.algorithms import resolve, zero_theta
+    from repro_torch.core.transport import TransportConfig, resolve_codec
+    from repro_torch.core.transport.chain import _payloads
+    from repro_torch.core.transport.qblock import _rows
+    from repro_torch.kernels.qblock.kernel import quantize, quantize_plain
+    from repro_torch.models.vision import init_cnn, init_vit
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    pgen = torch.Generator().manual_seed(0)
+    vit, _ = init_vit(pgen, image_size=32, n_classes=100, device=dev,
+                      **VIT_TINY)
+    cnn = init_cnn(pgen, n_classes=8, width=8, blocks=2, device=dev)
+    opt = resolve("fedpac_muon_light").make_optimizer()
+    chain = resolve_codec(MUON_LIGHT["theta_codec"], TransportConfig(
+        rank=LIGHT_RANK, wire_dtype=MUON_LIGHT["wire_dtype"]))
+    kinds, n_rows = collections.Counter(), 0
+    for label, params, s in (("ViT-Tiny", vit, S_VIT), ("CNN", cnn, 2)):
+        theta = tree_map(
+            lambda t: torch.randn((s, *t.shape), generator=gen, device=dev),
+            zero_theta(opt, params))
+        inner = chain.stages[0].encode(theta)
+        kinds.update(m.kind for m in tree_leaves(inner.leaves))
+        payloads = _payloads(inner.leaves)
+        flat = tree_leaves(payloads)
+        if {x.dtype for x in flat} != {torch.bfloat16}:
+            raise AssertionError(f"{label} chain payloads: dtypes "
+                                 f"{ {x.dtype for x in flat} }, want bf16")
+        rows = [_rows(x) for x in flat]
+        n_rows += len(rows)
+        quantize_agrees(f"{label} chain payloads", rows)
+        before = quantize.launches
+        msg = chain.stages[1].encode(payloads)
+        if quantize.launches != before + 1:
+            raise AssertionError(f"{label}: the chain's qblock stage took "
+                                 f"{quantize.launches - before} launches")
+        for x, m in zip(rows, tree_leaves(msg.leaves)):
+            wq, ws = quantize_plain(x)
+            bad = int((m.parts["q"] != wq).sum()) + bits_differ(
+                m.parts["scale"], ws)
+            if bad:
+                raise AssertionError(
+                    f"{label} chain qblock stage at {tuple(x.shape)}: {bad} "
+                    "values differ from the plain version")
+    if set(kinds) != {"lowrank", "dense"}:
+        raise AssertionError(f"chain leaf kinds {dict(kinds)}, want "
+                             "lowrank and dense")
+    log(f"quantize on the lowrank_svd+qblock chain's payloads (Muon "
+        f"momentum at ViT-Tiny and the CNN, rank {LIGHT_RANK}, bf16 wire: "
+        f"{kinds['lowrank']} low-rank and {kinds['dense']} dense leaves, "
+        f"{n_rows} bf16 payloads as f32 rows): grouped, one leaf a launch "
+        "and the chain's qblock stage bitwise equal to the plain version")
 
 
 def check_dequant_accumulate(stacked_shapes, dev, gen):
@@ -922,6 +1016,37 @@ def check_qblock_bytes(label, exp, hist, shapes):
         "scales on both channels)")
 
 
+def check_wire_bytes(label, exp, hist):
+    """The round's measured upload bytes equal the transport's count for
+    one client (``comm_bytes_per_round`` encodes one client's trees: for
+    the low-rank codecs, real SVDs or sketches, timed here)."""
+    t0 = time.perf_counter()
+    want = exp.comm_bytes_per_round()
+    secs = time.perf_counter() - t0
+    got = {r["upload_bytes"] for r in hist}
+    if got != {want}:
+        raise AssertionError(f"{label}: upload bytes {got}, want {want}")
+    log(f"{label}: {want} upload bytes per client per round "
+        f"(comm_bytes_per_round in {secs:.3f} s)")
+    return want
+
+
+def check_leaf_kinds(label, exp):
+    """The Theta channel's first (low-rank) stage compresses some leaves
+    of one client's Theta and passes others through dense."""
+    from repro_torch.core.transport.chain import Chain
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    codec = exp.transport.theta
+    if isinstance(codec, Chain):
+        codec = codec.stages[0]
+    msg = codec.encode(tree_map(lambda x: x[None], exp.server.theta))
+    kinds = collections.Counter(m.kind for m in tree_leaves(msg.leaves))
+    if len(kinds) != 2 or "dense" not in kinds:
+        raise AssertionError(f"{label}: Theta leaf kinds {dict(kinds)}, "
+                             "want a low-rank kind and dense")
+    log(f"{label}: Theta leaves " + json.dumps(dict(kinds)))
+
+
 def main_paths(vit_shapes, cnn_shapes):
     """Drives every path; returns each kernel's launches summed over the
     paths that ran it (each counted from 0)."""
@@ -943,7 +1068,8 @@ def main_paths(vit_shapes, cnn_shapes):
     # launch is a Newton-Schulz product
     total["newton_schulz"] = 0
 
-    def drive(label, exp, expect, mf_step=5, ns_step=0, ns_refresh=0):
+    def drive(label, exp, expect, mf_step=5, ns_step=0, ns_refresh=0,
+              dq_round=3):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
@@ -953,8 +1079,10 @@ def main_paths(vit_shapes, cnn_shapes):
         # Newton–Schulz refresh (once a round at K = precond_freq = 10) 15
         # more; Muon's step 15 (3 grouped products a Newton–Schulz step);
         # Sophia's step one; a qblock round of an aligned algorithm
-        # encodes twice (delta, theta) and flushes 3 times (delta, theta
-        # twice)
+        # encodes twice (delta, theta; a chain's qblock stage encodes its
+        # whole payload tree in one launch) and flushes 3 times (delta,
+        # theta twice; a lowrank_svd+qblock theta peels to the low-rank
+        # GEMM, so only the delta's)
         steps = exp.fed.local_steps * exp.fed.rounds
         ns = ns_step * steps + ns_refresh * exp.fed.rounds
         for name, want, what in (
@@ -963,15 +1091,17 @@ def main_paths(vit_shapes, cnn_shapes):
                  "refresh"),
                 ("sophia_update", steps, "1 per local step"),
                 ("quantize", 2 * exp.fed.rounds, "2 per round"),
-                ("dequant_accumulate", 3 * exp.fed.rounds, "3 per round")):
+                ("dequant_accumulate", dq_round * exp.fed.rounds,
+                 f"{dq_round} per round")):
             if name in expect and launches[name] != want:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
                                      f"launches, want {want} ({what})")
         return hist
 
     # SOAP
+    vit_soap = {}
     for algo in ("local_soap", "fedpac_soap"):
-        drive(f"vit_tiny {algo}", build_experiment(
+        vit_soap[algo] = drive(f"vit_tiny {algo}", build_experiment(
             algo, scenario=vit, participation=0.5, rounds=ROUNDS), soap_k)
     cnn_gpu = drive("cifar_like_cnn fedpac_soap", build_experiment(
         "fedpac_soap", scenario=cnn, rounds=ROUNDS,
@@ -1030,6 +1160,53 @@ def main_paths(vit_shapes, cnn_shapes):
             algo, scenario=cnn_cpu, rounds=ROUNDS, device="cpu"))
         compare_histories(label, ref, cnn_gpu, FIRST_ORDER_TOL,
                           FIRST_ORDER_REL_TOL)
+
+    # the low-rank wire at ViT-Tiny: SOAP with the rank-4 SVD Theta
+    # upload, and Muon with the qblock delta, the lowrank_svd+qblock Theta
+    # chain on the bf16 wire and error feedback
+    light_rounds = 2
+    label = "vit_tiny fedpac_soap_light"
+    exp = build_experiment("fedpac_soap_light", scenario=vit,
+                           participation=0.5, rounds=light_rounds,
+                           svd_rank=LIGHT_RANK)
+    light = check_wire_bytes(label, exp, drive(label, exp, soap_k))
+    dense = vit_soap["fedpac_soap"][-1]["upload_bytes"]
+    log(f"Table 6 ratio at ViT-Tiny (round lines): fedpac_soap_light / "
+        f"fedpac_soap upload bytes per client = {light} / {dense} = "
+        f"{light / dense:.4f}")
+    label = "vit_tiny fedpac_muon_light qblock+lowrank_svd+qblock bf16 ef"
+    exp = build_experiment("fedpac_muon_light", scenario=vit,
+                           participation=0.5, rounds=light_rounds,
+                           **MUON_LIGHT)
+    check_wire_bytes(label, exp, drive(
+        label, exp, muon_k + ("quantize", "dequant_accumulate"), mf_step=0,
+        ns_step=15, dq_round=1))
+
+    # SCAFFOLD, FedPM and the low-rank Theta uploads on the CNN, against
+    # the CPU path
+    for algo, kw, expect, counts, tol in (
+            ("scaffold", {}, (), {}, (FIRST_ORDER_TOL, FIRST_ORDER_REL_TOL)),
+            ("fedpm_soap", dict(opt_kwargs=FEDPM_OPT), soap_k,
+             dict(ns_refresh=15), (CNN_TOL, CNN_REL_TOL)),
+            ("fedpac_soap", dict(theta_codec="power_sketch",
+                                 svd_rank=CNN_SOAP_RANK,
+                                 opt_kwargs={"eps": CNN_EPS}), soap_k, {},
+             (CNN_TOL, CNN_REL_TOL)),
+            ("fedpac_soap_light", dict(svd_rank=CNN_SOAP_RANK,
+                                       opt_kwargs={"eps": CNN_EPS}),
+             soap_k, {}, (CNN_TOL, CNN_REL_TOL))):
+        label = " ".join(["cifar_like_cnn", algo] + [
+            f"{k}={v}" for k, v in {**kw, **kw.get("opt_kwargs", {})}.items()
+            if k in ("theta_codec", "eig_method")])
+        exp = metrics_on_card(build_experiment(algo, scenario=cnn,
+                                               rounds=ROUNDS, **kw))
+        cnn_gpu = drive(label, exp, expect, **counts)
+        if "svd_rank" in kw:
+            check_leaf_kinds(label, exp)
+        check_wire_bytes(label, exp, cnn_gpu)
+        ref, _ = run_experiment(f"{label} (cpu reference)", build_experiment(
+            algo, scenario=cnn_cpu, rounds=ROUNDS, device="cpu", **kw))
+        compare_histories(label, ref, cnn_gpu, *tol)
     return total
 
 
@@ -1064,6 +1241,7 @@ def main():
                + [(2, *s) for s in cnn_shapes])
     errs["sophia_update"] = check_sophia_update(stacked, dev, gen)
     errs["quantize"] = check_quantize(stacked, dev, gen)
+    check_chain_quantize(dev, gen)
     errs["dequant_accumulate"] = check_dequant_accumulate(stacked, dev, gen)
     mats = vit_matrix_leaves(dev, gen)
     errs["newton_schulz"] = check_newton_schulz(mats)

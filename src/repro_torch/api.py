@@ -11,8 +11,10 @@ experiment builder — counterpart of ``repro/api.py`` (sync runtime only).
                            device="cpu")           # plain PyTorch path
 
 Every registered algorithm builds the same way: ``fedavg``, ``fedcm``,
-and ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,soap,
-sophia}``; scenarios ``cifar_like_{cnn,vit}[_dir0.05|_shard|_iid]``.
+``scaffold``, ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,
+soap,sophia}``, ``fedpm_{adamw,sophia,muon,soap}``, and the
+``<registered>_light`` variant of each (rank-r SVD Theta upload);
+scenarios ``cifar_like_{cnn,vit}[_dir0.05|_shard|_iid]``.
 """
 from __future__ import annotations
 

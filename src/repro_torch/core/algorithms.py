@@ -3,22 +3,29 @@ round path every algorithm runs through — counterpart of
 ``repro/core/algorithms.py``.
 
 An algorithm is data: a frozen ``AlgorithmSpec`` declaring its local
-optimizer, alignment/correction policy, beta policy and upload codecs.
-``build_round_fn`` turns a spec into the uniform driver
+optimizer, alignment/correction policy, beta policy, upload codecs,
+per-client persistent state, aggregation mixing weights and comm
+accounting.  ``build_round_fn`` turns a spec into the uniform driver
 
     round_fn(server, client_state, cohort, batches, seed)
         -> (server, client_state, metrics)
 
-on the fused wire path: the cohort's local rounds, the wire encode (with
-error feedback for a lossy delta codec), and the wire-native server flush
-(``engine.aggregate_wire``).  Ported so far: ``fedavg`` and ``fedcm``
-(SGD; FedCM's beta pinned to 0.9), the ``local_*``, ``fedpac_*``,
-``align_only_*`` and ``correct_only_*`` builtins of every ported
-optimizer (SGD, AdamW, Muon, SOAP, Sophia), the dense and qblock codecs,
-and error-feedback residuals as per-client state (``ClientStateSpec``,
-without the population store's export/import hooks).  Algorithm state
-(SCAFFOLD), mixing hooks (FedPM) and telemetry are not ported yet;
-``telemetry=True`` is accepted and ignored.
+so SCAFFOLD's control variates (``core.scaffold``) and FedPM's
+preconditioned mixing (``core.fedpm``) run through the same engine path
+as FedPAC.  With a transport, the round is the fused wire path: the
+cohort's local rounds, the wire encode (with error feedback for a lossy
+delta codec), and the wire-native server flush
+(``engine.aggregate_wire``); an algorithm with a ``mixing`` hook decodes
+the cohort and takes ``engine.aggregate``.  Without a transport the round
+aggregates the dense stacks, after the legacy ``compress_fn`` Theta
+round-trip when one is given.
+
+Builtins: ``fedavg``, ``fedcm`` (FedCM's beta pinned to 0.9), the
+``local_*``, ``fedpac_*``, ``align_only_*`` and ``correct_only_*`` of
+every optimizer (SGD, AdamW, Muon, SOAP, Sophia), ``scaffold``,
+``fedpm_{adamw,sophia,muon,soap}``, and ``<registered>_light`` (the
+rank-r SVD Theta upload), derived on resolution.  ``telemetry=True`` is
+accepted and ignored until ``obs`` is ported.
 """
 from __future__ import annotations
 
@@ -32,8 +39,9 @@ from repro_torch import optim
 from repro_torch.core import transport as T
 from repro_torch.core.client import LocalRunConfig, client_round
 from repro_torch.core.engine import (
-    AggregationConfig, ExecutorConfig, advance_server,
-    aggregate_wire, make_cohort_executor, make_controller, update_controller,
+    AggregationConfig, BETA_MAX_AUTO, ExecutorConfig, advance_server,
+    aggregate, aggregate_wire, make_cohort_executor, make_controller,
+    update_controller,
 )
 from repro_torch.core.server import ServerState
 from repro_torch.optim.api import LocalOptimizer
@@ -50,27 +58,48 @@ class DuplicateAlgorithmError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class ClientStateSpec:
-    """Per-client persistent-state protocol (the reference's, without the
-    population store's export/import hooks).  State is stacked with a
-    leading (N,) client axis.
+    """Per-client persistent-state protocol.  State is stacked with a
+    leading (N,) client axis on the run's device.
 
       init(params, n_clients)                     -> stacked state tree
       client_view(state, cohort)                  -> the cohort's rows
       server_update(state, cohort, outs, n)       -> new state
 
-    ``outs`` is the cohort-stacked state output of the local round.
+    ``cohort`` is the (S,) tensor of client ids and ``outs`` the
+    cohort-stacked state output of the local update.
+
+    ``client_export``/``client_import``/``client_import_many`` are the
+    sparse population's spill hooks: one client's private row out of the
+    stacked state, and one or many rows grafted back in.  They default to
+    the generic stacked-leaf slice and write, right whenever every leaf
+    carries the (N,) axis (error-feedback residuals do); states that mix
+    rows with shared globals (SCAFFOLD's ``c_global``) override them.  Use
+    ``state_export``/``state_import``/``state_import_many``.  Unlike the
+    reference's functional ``.at[].set``, grafts write in place: the
+    stacked state is as large as N copies of the model.
     """
     init: Callable[[Any, int], Any]
     client_view: Callable[[Any, Any], Any]
     server_update: Callable[[Any, Any, Any, int], Any]
+    client_export: Optional[Callable[[Any, Any], Any]] = None
+    client_import: Optional[Callable[[Any, Any, Any], Any]] = None
+    client_import_many: Optional[Callable[[Any, Any, Any], Any]] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmSpec:
     """One federated algorithm, declaratively.
 
-    Correction strength comes from ``FedConfig.beta`` (0 when the
-    algorithm does not correct).
+    local_update: factory ``(spec, loss_fn, opt, run) -> local_fn`` with
+      ``local_fn(params, theta, g_global, *, beta, view, batches,
+      cohort_exec, seed, probe_fn) -> (delta, theta_out_or_None,
+      client_out_or_None, loss)`` over the whole cohort (``view`` holds
+      its gathered state rows, ``batches`` and the outputs keep the
+      leading (S,) axis); None selects ``core.client.client_round``.
+    client_state: the ``ClientStateSpec`` of the algorithm's own state.
+    mixing: per-client aggregation weights ``(deltas, thetas) -> (S,)``
+      for the delta mean (``engine.precond_mixing_weights``); needs the
+      decoded cohort, so it takes decode-then-``aggregate``.
     pinned_beta: algorithm-mandated correction strength overriding the
       user's ``FedConfig.beta`` (FedCM's (1 - alpha) = 0.9).
     default_lr: overrides the optimizer's table lr (``fed.lr`` still wins).
@@ -80,8 +109,11 @@ class AlgorithmSpec:
     align: bool = False
     correct: bool = False
     pinned_beta: Optional[float] = None
-    upload: str = "dense"               # Theta codec spec
+    upload: str = "dense"               # Theta codec spec ("svd": low-rank)
     delta_upload: str = "dense"         # delta codec spec
+    local_update: Optional[Callable] = None
+    client_state: Optional[ClientStateSpec] = None
+    mixing: Optional[Callable] = None
     default_lr: Optional[float] = None
     description: str = ""
 
@@ -103,13 +135,17 @@ class AlgorithmSpec:
     def make_optimizer(self, **opt_kwargs) -> LocalOptimizer:
         return optim.make(self.optimizer, **opt_kwargs)
 
-    def make_transport(self, *, block: int = 128, delta_codec=None,
-                       theta_codec=None, error_feedback: bool = True
-                       ) -> T.Transport:
+    def make_transport(self, *, rank: int = 8, block: int = 128,
+                       sketch_iters: int = 2, delta_codec=None,
+                       theta_codec=None, error_feedback: bool = True,
+                       wire_dtype: str = "f32") -> T.Transport:
         """This spec's wire policy: one codec per upload channel
         (``delta_codec``/``theta_codec`` override the spec's declared
-        codec specs, e.g. from FedConfig)."""
-        cfg = T.TransportConfig(block=block)
+        codec specs, e.g. from FedConfig).  ``wire_dtype`` caps floating
+        payload dtypes on the wire ("f32" native | "bf16")."""
+        cfg = T.TransportConfig(rank=rank, block=block,
+                                sketch_iters=sketch_iters,
+                                wire_dtype=wire_dtype)
         return T.Transport(
             delta=T.resolve_codec(
                 self.delta_upload if delta_codec is None else delta_codec,
@@ -118,10 +154,34 @@ class AlgorithmSpec:
                 self.upload if theta_codec is None else theta_codec, cfg),
             error_feedback=error_feedback)
 
+    def comm_bytes(self, params, theta, *, svd_rank: Optional[int] = None
+                   ) -> int:
+        """Per-client upload bytes for one round (Table 6 accounting),
+        measured from the wire messages this spec's default transport
+        encodes for one client's trees."""
+        transport = self.make_transport(rank=svd_rank or 8)
+        return transport.round_bytes(params, theta if self.align else None)
+
+    def light(self) -> "AlgorithmSpec":
+        """Derived ``<name>_light`` variant: rank-r SVD Theta upload."""
+        return dataclasses.replace(self, name=f"{self.name}_light",
+                                   upload="svd")
+
 
 # ----------------------------------------------------------------- registry
 
 _REGISTRY: dict[str, AlgorithmSpec] = {}
+_BUILTINS_LOADED = False
+
+
+def _ensure_builtins():
+    """Import the modules that register SCAFFOLD and FedPM (idempotent;
+    lazy, so this module stays free of import cycles)."""
+    global _BUILTINS_LOADED
+    if _BUILTINS_LOADED:
+        return
+    from repro_torch.core import fedpm, scaffold  # noqa: F401
+    _BUILTINS_LOADED = True   # only after the imports succeed
 
 
 def register(spec: AlgorithmSpec, *, overwrite: bool = False) -> AlgorithmSpec:
@@ -142,19 +202,118 @@ def register(spec: AlgorithmSpec, *, overwrite: bool = False) -> AlgorithmSpec:
 
 def registered() -> tuple:
     """Sorted names of all registered algorithms."""
+    _ensure_builtins()
     return tuple(sorted(_REGISTRY))
+
+
+def get(name: str) -> AlgorithmSpec:
+    """The registered spec ``name``, or ``<registered>_light`` derived."""
+    _ensure_builtins()
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name.endswith("_light"):
+        base = name[: -len("_light")]
+        if base in _REGISTRY:
+            return _REGISTRY[base].light()
+    raise UnknownAlgorithmError(
+        f"unknown algorithm {name!r}: registered specs are "
+        f"{', '.join(registered())} (append '_light' for the rank-r SVD "
+        "Theta upload)")
 
 
 def resolve(spec_or_name: Union[str, AlgorithmSpec]) -> AlgorithmSpec:
     """Spec passes through; strings resolve against the registry."""
     if isinstance(spec_or_name, AlgorithmSpec):
         return spec_or_name
-    name = str(spec_or_name)
-    if name not in _REGISTRY:
-        raise UnknownAlgorithmError(
-            f"unknown or unported algorithm {name!r}: registered specs are "
-            f"{', '.join(registered())}")
-    return _REGISTRY[name]
+    return get(str(spec_or_name))
+
+
+# -------------------------------------------------------- client state
+
+def _put(x, idx, row):
+    x[idx] = row.to(x.dtype)
+    return x
+
+
+def state_export(proto: ClientStateSpec, state, cid):
+    """One client's private state row (what a population store spills)."""
+    if proto.client_export is not None:
+        return proto.client_export(state, cid)
+    return tree_map(lambda x: x[cid], state)
+
+
+def state_import(proto: ClientStateSpec, state, cid, row):
+    """Graft a private row (from ``state_export``) back in at ``cid``."""
+    if proto.client_import is not None:
+        return proto.client_import(state, cid, row)
+    return tree_map(lambda x, r: _put(x, cid, r), state, row)
+
+
+def state_import_many(proto: ClientStateSpec, state, cids, rows):
+    """Graft many private rows (stacked along a leading axis aligned with
+    ``cids``) in one scatter; specs that override ``client_import``
+    without a batched variant graft them one by one."""
+    if proto.client_import_many is not None:
+        return proto.client_import_many(state, cids, rows)
+    if proto.client_import is not None:
+        for i, cid in enumerate(torch.as_tensor(cids).tolist()):
+            state = proto.client_import(
+                state, cid, tree_map(lambda x: x[i], rows))
+        return state
+    ids = torch.as_tensor(cids, dtype=torch.long)
+    return tree_map(lambda x, r: _put(x, ids, r), state, rows)
+
+
+# error-feedback residuals, declared through the same per-client state
+# protocol as algorithm state: the round gathers the cohort's residuals
+# and scatters the refreshed ones back
+EF_STATE = ClientStateSpec(init=T.ef_init, client_view=T.ef_view,
+                           server_update=lambda s, cohort, outs, n:
+                           T.ef_scatter(s, cohort, outs))
+
+
+def _compose_state_specs(algo: ClientStateSpec,
+                         ef: ClientStateSpec) -> ClientStateSpec:
+    """Pair algorithm state with transport (EF) state: one protocol, two
+    independently scattered slots."""
+    return ClientStateSpec(
+        init=lambda p, n: (algo.init(p, n), ef.init(p, n)),
+        client_view=lambda s, cid: (algo.client_view(s[0], cid),
+                                    ef.client_view(s[1], cid)),
+        server_update=lambda s, cohort, outs, n: (
+            algo.server_update(s[0], cohort, outs[0], n),
+            ef.server_update(s[1], cohort, outs[1], n)),
+        client_export=lambda s, cid: (state_export(algo, s[0], cid),
+                                      state_export(ef, s[1], cid)),
+        client_import=lambda s, cid, row: (
+            state_import(algo, s[0], cid, row[0]),
+            state_import(ef, s[1], cid, row[1])),
+        client_import_many=lambda s, cids, rows: (
+            state_import_many(algo, s[0], cids, rows[0]),
+            state_import_many(ef, s[1], cids, rows[1])))
+
+
+def round_client_state_spec(spec: AlgorithmSpec,
+                            transport: Optional[T.Transport] = None
+                            ) -> Optional[ClientStateSpec]:
+    """The per-client state protocol of one run: the algorithm's declared
+    state, the transport's error-feedback residuals (lossy delta codec
+    only), their composition, or None."""
+    ef = EF_STATE if (transport is not None
+                      and transport.feedback_active) else None
+    algo = spec.client_state
+    if ef is None:
+        return algo
+    if algo is None:
+        return ef
+    return _compose_state_specs(algo, ef)
+
+
+def init_round_client_state(spec: AlgorithmSpec, transport, params,
+                            n_clients: int):
+    """Fresh state matching ``round_client_state_spec`` (None if stateless)."""
+    proto = round_client_state_spec(spec, transport)
+    return proto.init(params, n_clients) if proto is not None else None
 
 
 # -------------------------------------------------------- uniform round path
@@ -165,54 +324,67 @@ def zero_theta(opt: LocalOptimizer, params):
     return tree_map(torch.zeros_like, opt.get_precond(opt.init(params)))
 
 
-# error-feedback residuals, declared through the per-client state
-# protocol: the round gathers the cohort's residuals and scatters the
-# refreshed ones back
-EF_STATE = ClientStateSpec(init=T.ef_init, client_view=T.ef_view,
-                           server_update=lambda s, cohort, outs, n:
-                           T.ef_scatter(s, cohort, outs))
+def make_local_update(spec: AlgorithmSpec, loss_fn: Callable,
+                      opt: LocalOptimizer, run: LocalRunConfig) -> Callable:
+    """The spec's cohort local update; defaults to ``client_round``."""
+    if spec.local_update is not None:
+        return spec.local_update(spec, loss_fn, opt, run)
 
-
-def round_client_state_spec(spec: AlgorithmSpec,
-                            transport: Optional[T.Transport] = None
-                            ) -> Optional[ClientStateSpec]:
-    """The per-client state protocol of one run: the transport's
-    error-feedback residuals (lossy delta codec only) or None.  (Declared
-    algorithm state, SCAFFOLD's, is not ported.)"""
-    del spec
-    if transport is not None and transport.feedback_active:
-        return EF_STATE
-    return None
-
-
-def init_round_client_state(spec: AlgorithmSpec, transport, params,
-                            n_clients: int):
-    """Fresh state matching ``round_client_state_spec`` (None if stateless)."""
-    proto = round_client_state_spec(spec, transport)
-    return proto.init(params, n_clients) if proto is not None else None
-
-
-def make_wire_client_step(spec: AlgorithmSpec, loss_fn: Callable,
-                          opt: LocalOptimizer, run: LocalRunConfig,
-                          transport: T.Transport, cohort_exec: Callable):
-    """The cohort's round, from server state to wire messages:
-    ``cohort_step(params, theta, g_global, beta, batches, residual, *,
-    seed, probe_fn) -> (dmsg, tmsg, new_residual, loss)``.
-
-    ``residual`` is the cohort's stacked error-feedback rows (None when
-    feedback is off): it is added to the delta before encode, and the
-    refreshed residual comes back for the scatter.  ``tmsg`` is the
-    encoded stacked Theta for aligned algorithms, the dense stacked Theta
-    tree otherwise."""
-    def cohort_step(params, theta, g_global, beta, batches, residual=None,
-                    *, seed=0, probe_fn=None):
+    def local_fn(params, theta, g_global, *, beta, view, batches,
+                 cohort_exec, seed=0, probe_fn=None):
+        del view  # stateless
         delta, theta_out, loss = client_round(
             loss_fn, opt, run, params, theta, g_global, batches, cohort_exec,
             beta=beta, seed=seed, probe_fn=probe_fn)
-        dmsg, _, new_residual = T.encode_with_feedback(transport.delta,
-                                                       delta, residual)
-        tmsg = transport.theta.encode(theta_out) if spec.align else theta_out
-        return dmsg, tmsg, new_residual, loss
+        return delta, theta_out, None, loss
+
+    return local_fn
+
+
+def make_wire_client_step(spec: AlgorithmSpec, local_fn: Callable,
+                          transport: Optional[T.Transport],
+                          state_proto: Optional[ClientStateSpec], *,
+                          fused: bool, cohort_exec: Callable) -> Callable:
+    """The cohort's round, from state view to wire messages:
+    ``cohort_step(params, theta, g_global, beta, cstate, cohort, batches,
+    *, seed, probe_fn) -> (dchan, tmsg, out, loss)``.
+
+    ``dchan`` is the encoded delta (error-compensated for a lossy codec
+    with feedback on), paired with its decode on the decode-then-aggregate
+    path (``fused=False``) when feedback computed it anyway; ``tmsg`` the
+    encoded stacked Theta of aligned algorithms, the dense stacked Theta
+    otherwise; ``out`` the new state rows (algorithm state, residuals, or
+    both as a pair).  Without a transport the dense stacks pass through.
+    """
+    ef_active = transport is not None and transport.feedback_active
+    has_algo_state = spec.client_state is not None
+    encode_theta = transport is not None and spec.align
+
+    def cohort_step(params, theta, g_global, beta, cstate, cohort, batches,
+                    *, seed=0, probe_fn=None):
+        view = (state_proto.client_view(cstate, cohort)
+                if state_proto is not None else None)
+        if ef_active:
+            algo_view, residual = view if has_algo_state else (None, view)
+        else:
+            algo_view, residual = view, None
+        delta, theta_out, algo_out, loss = local_fn(
+            params, theta, g_global, beta=beta, view=algo_view,
+            batches=batches, cohort_exec=cohort_exec, seed=seed,
+            probe_fn=probe_fn)
+        if transport is None:
+            return delta, theta_out, algo_out, loss
+        dmsg, decoded, new_residual = T.encode_with_feedback(
+            transport.delta, delta, residual)
+        dchan = (dmsg, decoded) if (ef_active and not fused) else dmsg
+        tmsg = (transport.theta.encode(theta_out) if encode_theta
+                else theta_out)
+        if ef_active:
+            out = ((algo_out, new_residual) if has_algo_state
+                   else new_residual)
+        else:
+            out = algo_out
+        return dchan, tmsg, out, loss
 
     return cohort_step
 
@@ -224,74 +396,119 @@ def build_round_fn(
     *,
     lr: float,
     local_steps: int,
-    transport: T.Transport,
     beta: Union[float, str] = 0.5,
     hessian_freq: int = 10,
     server_lr: float = 1.0,
+    compress_fn: Optional[Callable] = None,
+    transport: Optional[T.Transport] = None,
+    beta_max: float = BETA_MAX_AUTO,
+    drift_ema: float = 1.0,
     executor: Optional[ExecutorConfig] = None,
     n_clients: Optional[int] = None,
     telemetry: bool = False,
     probe_fn: Optional[Callable] = None,
 ):
-    """The one round implementation (fused wire path).
+    """The one round implementation, for every registered algorithm.
 
     Returns ``driver(server, client_state, cohort, batches, seed) ->
     (server, client_state, metrics)``; batches carry leading (S, K, ...)
-    axes and ``cohort`` holds the (S,) client ids, by which the
-    error-feedback rows of ``client_state`` are gathered and scattered
-    (``n_clients`` sizes that state and is required when it exists).
-    ``seed`` is the round's random draw: it seeds Sophia's Hutchinson
-    probes, where the reference splits its round key.
+    axes and ``cohort`` holds the (S,) client ids, by which the rows of
+    ``client_state`` are gathered and scattered (``n_clients`` sizes that
+    state and is required when it exists).
+
+    ``transport`` routes the uploads through wire codecs: the server runs
+    the fused flush (``engine.aggregate_wire``) and reports the measured
+    ``upload_bytes``; algorithms with a ``mixing`` hook decode the cohort
+    and take ``engine.aggregate``.  ``compress_fn`` is the legacy stacked
+    Theta round-trip (exclusive with ``transport``); None for both is the
+    plain dense path.  ``seed`` is the round's random draw: it seeds
+    Sophia's Hutchinson probes, where the reference splits its round key.
     ``probe_fn(seed, k) -> stacked probe tree`` replaces those probes (the
     parity tests inject the reference's).  ``telemetry`` is accepted and
     ignored until ``obs`` is ported.
     """
     del telemetry
+    if transport is not None and compress_fn is not None:
+        raise ValueError("pass either transport or the legacy compress_fn, "
+                         "not both")
     state_proto = round_client_state_spec(spec, transport)
+    ef_active = transport is not None and transport.feedback_active
+    has_algo_state = spec.client_state is not None
     if state_proto is not None and n_clients is None:
+        what = ("declared algorithm state" if has_algo_state
+                else "error-feedback residuals")
         raise ValueError(
-            f"algorithm {spec.name!r} carries per-client state "
-            "(error-feedback residuals); build_round_fn needs n_clients")
+            f"algorithm {spec.name!r} carries per-client state ({what}); "
+            "build_round_fn needs n_clients")
+    encode_theta = transport is not None and spec.align
+    # the fused wire path needs no decoded cohort; mixing hooks consume
+    # the decoded stacks, so they keep the decode-then-aggregate path
+    fused = transport is not None and spec.mixing is None
     run = LocalRunConfig(lr=lr, local_steps=local_steps,
                          hessian_freq=hessian_freq, align=spec.align)
     agg_cfg = AggregationConfig(lr=lr, local_steps=local_steps,
                                 server_lr=server_lr, align=spec.align)
     cohort_step = make_wire_client_step(
-        spec, loss_fn, opt, run, transport, make_cohort_executor(executor))
+        spec, make_local_update(spec, loss_fn, opt, run), transport,
+        state_proto, fused=fused,
+        cohort_exec=make_cohort_executor(executor))
 
     def driver(server: ServerState, cstate, cohort, batches, seed):
         dev = tree_leaves(server.params)[0].device
         ctrl = server.geom if server.geom is not None else make_controller(
-            beta, correct=spec.correct, device=dev)
+            beta, correct=spec.correct, beta_max=beta_max, ema=drift_ema,
+            device=dev)
         theta = server.theta
         if spec.align and theta is None:
             theta = zero_theta(opt, server.params)
         s = len(cohort)
         ids = torch.as_tensor(cohort, dtype=torch.long, device=dev)
-        residual = (state_proto.client_view(cstate, ids)
-                    if state_proto is not None else None)
         round_probes = (None if probe_fn is None else
                         functools.partial(probe_fn, seed))
-        dmsgs, tmsgs, new_residual, loss = cohort_step(
-            server.params, theta, server.g_global, ctrl.beta, batches,
-            residual, seed=seed, probe_fn=round_probes)
-        # exact host-side byte counts from the wire structures
-        total = T.wire_bytes(dmsgs)
-        if spec.align:
-            total += T.wire_bytes(tmsgs)
+        dchan, thetas, outs, loss = cohort_step(
+            server.params, theta, server.g_global, ctrl.beta, cstate, ids,
+            batches, seed=seed, probe_fn=round_probes)
         weights = torch.ones((s,), dtype=torch.float32, device=loss.device)
-        params, new_theta, new_g, agg, _ = aggregate_wire(
-            server.params, theta, server.g_global, dmsgs, weights, agg_cfg,
-            transport, tmsgs=tmsgs if spec.align else None,
-            thetas=None if spec.align else tmsgs)
+        total = None
+        if fused:
+            # exact host-side byte counts from the wire structures
+            total = T.wire_bytes(dchan)
+            if encode_theta:
+                total += T.wire_bytes(thetas)
+            params, new_theta, new_g, agg, _ = aggregate_wire(
+                server.params, theta, server.g_global, dchan, weights,
+                agg_cfg, transport, tmsgs=thetas if encode_theta else None,
+                thetas=None if encode_theta else thetas)
+        else:
+            deltas = dchan
+            if transport is not None:
+                # decode-then-aggregate: the mixing hook reads the decoded
+                # cohort; the bytes are the messages' before decoding
+                if ef_active:
+                    dmsgs, deltas = dchan
+                else:
+                    dmsgs, deltas = dchan, transport.delta.decode(dchan)
+                total = T.wire_bytes(dmsgs)
+                if encode_theta:
+                    total += T.wire_bytes(thetas)
+                    thetas = transport.theta.decode(thetas)
+            elif compress_fn is not None and thetas is not None:
+                # legacy path: clients upload a compressed Theta; the
+                # server aggregates its reconstruction (Table 6 trade-off)
+                thetas = compress_fn(thetas)
+            if spec.mixing is not None:
+                weights = spec.mixing(deltas, thetas)
+            params, new_theta, new_g, agg = aggregate(
+                server.params, theta, server.g_global, deltas, thetas,
+                weights, agg_cfg)
         if state_proto is not None:
-            cstate = state_proto.server_update(cstate, ids, new_residual,
-                                               n_clients)
+            cstate = state_proto.server_update(cstate, ids, outs, n_clients)
         new_ctrl = update_controller(ctrl, agg["norm_drift"],
                                      agg["freshness"])
-        metrics = dict(agg, loss=loss, beta=ctrl.beta,
-                       upload_bytes=total // s, upload_total_bytes=total,
-                       cohort_size=s)
+        metrics = dict(agg, loss=loss, beta=ctrl.beta)
+        if total is not None:
+            metrics.update(upload_bytes=total // s, upload_total_bytes=total,
+                           cohort_size=s)
         new_server = advance_server(server, params, new_theta, new_g,
                                     geom=new_ctrl, aligned=spec.align)
         return new_server, cstate, metrics
@@ -301,7 +518,7 @@ def build_round_fn(
 
 # ------------------------------------------------------- built-in algorithms
 
-def _register_builtins():
+def _register_stateless_builtins():
     register(AlgorithmSpec(
         name="fedavg", optimizer="sgd",
         description="SGD locally, parameter averaging"))
@@ -328,4 +545,4 @@ def _register_builtins():
             description="Table 5 ablation: Correction without Alignment"))
 
 
-_register_builtins()
+_register_stateless_builtins()

@@ -7,7 +7,8 @@
   Theta   Theta_B = sum_i w_i Theta_i / sum_i w_i,
           Theta' = (1 - rho) Theta + rho Theta_B   (only when cfg.align)
 
-rho is 1 for a synchronous round.  The streamed (pipeline) forms are not
+rho is 1 for a synchronous round.  ``precond_mixing_weights`` is FedPM's
+curvature-weighted mixing hook.  The streamed (pipeline) forms are not
 ported yet.
 """
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 
 from repro_torch.core.drift import drift_metric
 from repro_torch.core.server import ServerState
-from repro_torch.utils.tree import client_weighted_sum, tree_map, tree_norm_sq
+from repro_torch.utils.tree import (
+    client_weighted_sum, tree_leaves, tree_map, tree_norm_sq,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +31,31 @@ class AggregationConfig:
     local_steps: int           # K
     server_lr: float = 1.0
     align: bool = True         # update the global Theta reference?
+
+
+def precond_mixing_weights(deltas, thetas, eps: float = 1e-8):
+    """FedPM-style curvature-weighted mixing weights for the delta mean.
+
+    Preconditioned mixing of local parameters (Ishii et al., 2025): each
+    client's update is trusted inversely to the mass of its local curvature
+    estimate — clients in sharp regions (large mean |Theta_i|) move the
+    server less.  Returns (S,) weights normalized to mean 1, so the uniform
+    mean is recovered when every client sees the same curvature.
+    """
+    del deltas
+    leaves = tree_leaves(thetas)
+    if not leaves:
+        raise ValueError(
+            "preconditioned mixing needs per-client Theta uploads — use a "
+            "second-order local optimizer (sophia/muon/soap/adamw)")
+    total, count = 0.0, 0
+    for t in leaves:
+        tf = torch.abs(t.to(torch.float32)).reshape(t.shape[0], -1)
+        total = total + torch.sum(tf, dim=1)
+        count += tf.shape[1]
+    curv = total / count                    # (S,) mean |Theta_i|
+    w = 1.0 / (eps + curv)
+    return w / (torch.mean(w) + eps)
 
 
 def _finish_update_stats(params, theta, g_global, delta_wsum, b, rho, denom,

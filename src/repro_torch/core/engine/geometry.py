@@ -7,7 +7,10 @@ The drift-adaptive rule:
   beta_r = beta_max * d_r / (1 + d_r) * freshness
 
 ``beta`` and ``drift_ema`` are 0-d float32 tensors; the rule's
-configuration (beta_max, adaptive, ema) is plain data.
+configuration (beta_max, adaptive, ema) is plain data.  Every
+constructor takes the device its tensors live on as a required keyword: the
+reference's controllers take none, and a default would put a GPU run's
+controller on the CPU.
 """
 from __future__ import annotations
 
@@ -32,13 +35,13 @@ def _f32(x, device):
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def fixed_controller(beta: float, device="cpu") -> GeometryController:
+def fixed_controller(beta: float, *, device) -> GeometryController:
     """Constant-beta controller (fixed beta, FedCM, or no correction)."""
     return GeometryController(_f32(beta, device), _f32(0.0, device))
 
 
-def auto_controller(beta_max: float = BETA_MAX_AUTO, ema: float = 1.0,
-                    device="cpu") -> GeometryController:
+def auto_controller(beta_max: float = BETA_MAX_AUTO, ema: float = 1.0, *,
+                    device) -> GeometryController:
     """Drift-adaptive controller; beta starts at 0 (no drift signal yet)."""
     return GeometryController(_f32(0.0, device), _f32(0.0, device),
                               beta_max=float(beta_max), adaptive=True,
@@ -56,13 +59,13 @@ def update_controller(ctrl: GeometryController, norm_drift,
     return dataclasses.replace(ctrl, beta=beta, drift_ema=d)
 
 
-def make_controller(beta, *, correct: bool = True,
-                    beta_max: float = BETA_MAX_AUTO, ema: float = 1.0,
-                    device="cpu") -> GeometryController:
+def make_controller(beta, *, device, correct: bool = True,
+                    beta_max: float = BETA_MAX_AUTO,
+                    ema: float = 1.0) -> GeometryController:
     """The one beta rule: beta="auto" => adaptive; correct=False => beta
     pinned to 0."""
     if not correct:
-        return fixed_controller(0.0, device)
+        return fixed_controller(0.0, device=device)
     if beta == "auto":
         return auto_controller(beta_max=beta_max, ema=ema, device=device)
-    return fixed_controller(float(beta), device)
+    return fixed_controller(float(beta), device=device)

@@ -10,14 +10,17 @@ so byte counts are measurements of what the codec ships.
 The reference encodes one client at a time under ``vmap``; here codecs
 encode the cohort-stacked tree in one call, every payload keeping the
 leading (S,) client axis, and never mix data across clients (qblock cuts
-each client's row into blocks of its own).  ``accumulate`` reduces a
-stacked message straight into the weighted sum sum_i w_i decode(msg_i);
-``sq_norms`` gives each client's squared norm, the wire-native half of
-the drift decomposition.
+each client's row into blocks of its own; the low-rank codecs factor each
+client's matrices).  ``accumulate`` reduces a stacked message straight
+into the weighted sum sum_i w_i decode(msg_i), optionally folded into a
+running ``carry``; ``sq_norms`` gives each client's squared norm, the
+wire-native half of the drift decomposition.
 
-Ported: the dense codec and qblock (``TransportConfig.block``), and
-error feedback for lossy delta codecs (``Transport.error_feedback``).
-Lowrank, sketch, chains and the bf16 wire follow.
+Codecs: ``dense``, ``lowrank_svd`` (and ``svd``, the legacy ``*_light``
+token), ``power_sketch``, ``qblock`` and ``"a+b"`` chains of them
+(``chain.py``); ``wire_dtype="bf16"`` halves the floating payloads of the
+dense and low-rank codecs.  Error feedback for lossy delta codecs is in
+``error_feedback.py``.
 """
 from __future__ import annotations
 
@@ -34,10 +37,33 @@ class UnknownCodecError(ValueError):
     """Codec spec names no registered codec."""
 
 
+# wire dtypes: "f32" ships floating payloads in their native dtype (the
+# lossless wire format); "bf16" halves every floating payload on the wire
+# (dense leaves, low-rank/sketch factors — qblock is already int8 + f32
+# scales and is unaffected).  Decode casts back to the envelope's dtype.
+WIRE_DTYPES = {"f32": None, "bf16": torch.bfloat16}
+
+
+def validate_wire_dtype(name: str) -> str:
+    if name not in WIRE_DTYPES:
+        raise ValueError(
+            f"unknown wire_dtype {name!r} (want one of "
+            f"{tuple(sorted(WIRE_DTYPES))})")
+    return name
+
+
+def wire_cast(leaf, wire_dtype: str):
+    """Cast a floating payload to the wire dtype ("f32" ships native)."""
+    dt = WIRE_DTYPES[wire_dtype]
+    if dt is None or not leaf.dtype.is_floating_point:
+        return leaf
+    return leaf.to(dt)
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafMsg:
     """One leaf's wire representation: payload tensors + envelope."""
-    kind: str          # "dense" | "qblock"
+    kind: str          # "dense" | "lowrank" | "sketch" | "qblock"
     shape: tuple       # encoded (stacked) leaf shape (decode target)
     dtype: Any         # encoded leaf dtype (decode target)
     parts: dict        # name -> payload tensor (what actually ships)
@@ -46,9 +72,14 @@ class LeafMsg:
 
 @dataclasses.dataclass(frozen=True)
 class WireMsg:
-    """One upload: the source tree with a ``LeafMsg`` at every leaf."""
+    """One upload: the source tree with a ``LeafMsg`` at every leaf.
+
+    ``envelopes`` is a chain's framing (``chain.py``): for each inner
+    stage, its ``LeafMsg`` tree with the payloads taken out — metadata,
+    like the reference's static treedef, so ``wire_bytes`` skips it."""
     codec: str
     leaves: Any
+    envelopes: tuple = ()
 
 
 def wire_bytes(msg: WireMsg) -> int:
@@ -60,9 +91,11 @@ def wire_bytes(msg: WireMsg) -> int:
     return int(total)
 
 
-def dense_leaf(leaf) -> LeafMsg:
-    """Passthrough envelope: the leaf itself is the payload."""
-    return LeafMsg("dense", tuple(leaf.shape), leaf.dtype, {"x": leaf})
+def dense_leaf(leaf, wire_dtype: str = "f32") -> LeafMsg:
+    """Passthrough envelope: the leaf itself is the payload (cast to the
+    wire dtype on the way out; the envelope keeps the decode target)."""
+    return LeafMsg("dense", tuple(leaf.shape), leaf.dtype,
+                   {"x": wire_cast(leaf, wire_dtype)})
 
 
 class Codec:
@@ -81,7 +114,10 @@ class Codec:
         raise NotImplementedError
 
     def decode_leaf(self, msg: LeafMsg):
-        raise NotImplementedError
+        if msg.kind == "dense":
+            return msg.parts["x"].to(msg.dtype)
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot decode kind {msg.kind!r}")
 
     def encode(self, tree) -> WireMsg:
         return WireMsg(self.name, tree_map(self.encode_leaf, tree))
@@ -89,16 +125,31 @@ class Codec:
     def decode(self, msg: WireMsg):
         return tree_map(self.decode_leaf, msg.leaves)
 
-    def accumulate_leaf(self, msgs: LeafMsg, weights):
-        """sum_i w_i * decode(msg_i) for one stacked leaf, in f32."""
-        return torch.tensordot(weights.to(torch.float32),
-                               self.decode_leaf(msgs).to(torch.float32),
-                               dims=([0], [0]))
+    def roundtrip(self, tree):
+        """What the server reconstructs from these clients' uploads."""
+        return self.decode(self.encode(tree))
 
-    def accumulate(self, msgs: WireMsg, weights):
-        """The tree of sum_i w_i * decode(msg_i); weights: (B,)."""
-        return tree_map(lambda m: self.accumulate_leaf(m, weights),
-                        msgs.leaves)
+    def accumulate_leaf(self, msgs: LeafMsg, weights, carry=None):
+        """sum_i w_i * decode(msg_i) for one stacked leaf, in f32.
+
+        ``carry`` is a running partial sum from earlier chunks of the same
+        cohort; ``carry=None`` is the exact one-shot expression, with no
+        zeros added."""
+        out = torch.tensordot(weights.to(torch.float32),
+                              self.decode_leaf(msgs).to(torch.float32),
+                              dims=([0], [0]))
+        return out if carry is None else carry + out
+
+    def accumulate(self, msgs: WireMsg, weights, carry=None):
+        """The tree of sum_i w_i * decode(msg_i); weights: (B,).  ``carry``
+        (a tree like the decode target) folds this chunk into running
+        partial sums; None is the one-shot flush."""
+        if carry is None:
+            return tree_map(lambda m: self.accumulate_leaf(m, weights),
+                            msgs.leaves)
+        return tree_map(
+            lambda m, c: self.accumulate_leaf(m, weights, carry=c),
+            msgs.leaves, carry)
 
     def sq_norms_leaf(self, msgs: LeafMsg):
         """(B,) squared Frobenius norm of each client's decoded leaf."""
@@ -136,27 +187,48 @@ def registered_codecs() -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
-    """Knobs shared by codec factories (one config, every codec)."""
+    """Knobs shared by codec factories (one config, every codec).
+    ``wire_dtype`` caps the dtype of floating payloads ("f32" ships
+    native; "bf16" halves dense payloads and low-rank factors)."""
+    rank: int = 8            # low-rank codecs (FedConfig.svd_rank)
     block: int = 128         # qblock elements per scale
+    sketch_iters: int = 2    # power_sketch subspace iterations
+    wire_dtype: str = "f32"  # floating payload dtype on the wire
+
+    def __post_init__(self):
+        validate_wire_dtype(self.wire_dtype)
 
 
-def validate_codec_spec(spec) -> None:
-    """Raises UnknownCodecError for specs naming no ported codec."""
-    if isinstance(spec, Codec):
-        return
-    if str(spec) not in _FACTORIES:
-        raise UnknownCodecError(
-            f"unknown or unported upload codec {spec!r} (want one of "
-            f"{registered_codecs()})")
+def _parse_spec(spec) -> list:
+    """'a+b' -> validated registry names; raises UnknownCodecError."""
+    names = [p.strip() for p in str(spec).split("+")]
+    for name in names:
+        if name not in _FACTORIES:
+            raise UnknownCodecError(
+                f"unknown upload codec {name!r} (want one of "
+                f"{registered_codecs()}, or a '+'-chain of them)")
+    return names
 
 
 def resolve_codec(spec, cfg: TransportConfig | None = None) -> Codec:
-    """Codec instances pass through; names resolve against the registry,
-    built with ``cfg`` (default ``TransportConfig()``)."""
-    validate_codec_spec(spec)
+    """Codec instances pass through; strings resolve against the registry,
+    built with ``cfg`` (default ``TransportConfig()``).  ``"a+b"``
+    composes a chain (a's payloads re-encoded by b, e.g.
+    ``"lowrank_svd+qblock"`` quantizes the SVD factors)."""
     if isinstance(spec, Codec):
         return spec
-    return _FACTORIES[str(spec)](cfg or TransportConfig())
+    cfg = cfg or TransportConfig()
+    stages = [_FACTORIES[name](cfg) for name in _parse_spec(spec)]
+    if len(stages) == 1:
+        return stages[0]
+    from repro_torch.core.transport.chain import Chain
+    return Chain(tuple(stages))
+
+
+def validate_codec_spec(spec) -> None:
+    """Raises UnknownCodecError for unresolvable specs (cheap, no build)."""
+    if not isinstance(spec, Codec):
+        _parse_spec(spec)
 
 
 # --------------------------------------------------------------- transport
@@ -182,7 +254,9 @@ class Transport:
     def round_bytes(self, params, theta=None) -> int:
         """Per-client upload bytes for one round, measured from the wire
         messages the codecs build for one client's trees (encoded as a
-        cohort of one: codecs take client-stacked trees)."""
+        cohort of one: codecs take client-stacked trees).  The encode is
+        real work on the trees' device: for the low-rank codecs it takes
+        one client's SVDs or sketches."""
         def one(tree):
             return tree_map(lambda x: x[None], tree)
 

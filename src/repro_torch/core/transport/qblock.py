@@ -15,7 +15,11 @@ weighted sums, one grouped launch for every leaf of the tree
 (``accumulate_leaf`` for one), and
 ``sq_norms_leaf`` takes s^2 * sum(q^2) per block in plain PyTorch, as the
 reference computes it in ``jnp``.  ``decode_leaf`` (the error-feedback
-residual, tests) is plain PyTorch, as the reference's ``dequantize`` is.
+residual, a chain's outer stage, tests) is plain PyTorch, as the
+reference's ``dequantize`` is.  Non-f32 leaves (a chain's bf16 factors)
+are quantized as f32, as the reference's ``ref.py`` casts them, and decode
+to their own dtype.  The wire format is already int8 + f32 scales, so
+``wire_dtype`` does not apply.
 """
 from __future__ import annotations
 
@@ -36,6 +40,11 @@ from repro_torch.utils.tree import (
 )
 
 
+def _rows(leaf):
+    """A stacked leaf as the kernel's (clients, n) f32 rows."""
+    return leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+
+
 class QBlock(Codec):
     name = "qblock"
     lossless = False
@@ -50,14 +59,12 @@ class QBlock(Codec):
                        {"q": q, "scale": scale}, extra=self.block)
 
     def encode_leaf(self, leaf) -> LeafMsg:
-        return self._msg(leaf, *quantize(leaf.reshape(leaf.shape[0], -1),
-                                         block=self.block))
+        return self._msg(leaf, *quantize(_rows(leaf), block=self.block))
 
     def encode(self, tree) -> WireMsg:
         """Every leaf of the stacked tree: one grouped kernel call."""
         flat = tree_leaves(tree)
-        coded = quantize_group([x.reshape(x.shape[0], -1) for x in flat],
-                               block=self.block)
+        coded = quantize_group([_rows(x) for x in flat], block=self.block)
         return WireMsg(self.name, tree_unflatten(tree, [
             self._msg(x, q, s) for x, (q, s) in zip(flat, coded)]))
 
@@ -65,15 +72,17 @@ class QBlock(Codec):
         x = dequantize(msg.parts["q"], msg.parts["scale"], msg.extra)
         return x.reshape(msg.shape).to(msg.dtype)
 
-    def accumulate_leaf(self, msgs: LeafMsg, weights):
+    def accumulate_leaf(self, msgs: LeafMsg, weights, carry=None):
         out = dequant_accumulate(msgs.parts["q"], msgs.parts["scale"],
                                  weights, block=msgs.extra)
-        return out.reshape(msgs.shape[1:])
+        out = out.reshape(msgs.shape[1:])
+        return out if carry is None else carry + out
 
-    def accumulate(self, msgs, weights):
+    def accumulate(self, msgs, weights, carry=None):
         """The tree of sum_i w_i * decode(msg_i): one grouped kernel call.
         A message frames every leaf with the one block it was encoded
-        with."""
+        with.  ``carry`` is added after the flush (``carry + out``, as the
+        reference folds it)."""
         flat = [m for _, m in tree_flatten_with_path(msgs.leaves)]
         blocks = {m.extra for m in flat}
         if len(blocks) > 1:
@@ -82,8 +91,10 @@ class QBlock(Codec):
         outs = dequant_accumulate_group(
             [m.parts["q"] for m in flat], [m.parts["scale"] for m in flat],
             weights, block=blocks.pop() if blocks else self.block)
-        return tree_unflatten(msgs.leaves, [
-            out.reshape(m.shape[1:]) for m, out in zip(flat, outs)])
+        outs = [out.reshape(m.shape[1:]) for m, out in zip(flat, outs)]
+        if carry is not None:
+            outs = [c + out for c, out in zip(tree_leaves(carry), outs)]
+        return tree_unflatten(msgs.leaves, outs)
 
     def sq_norms_leaf(self, msgs: LeafMsg):
         # ||q * s||^2 per block = s^2 * sum(q^2): the scales come out of

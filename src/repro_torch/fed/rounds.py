@@ -6,12 +6,17 @@ path.
 the sync runtime, the ``vmap`` executor and the dense transport, on the
 GPU (``device="cuda"``, which raises on a host without one; pass
 ``device="cpu"`` for the plain PyTorch path).  ``delta_codec`` /
-``theta_codec`` select the upload codecs (``"dense"``, ``"qblock"``);
-with a lossy delta codec and ``error_feedback`` the run carries stacked
-``(N, ...)`` f32 residuals as per-client state.  The round draws from one
-numpy generator in the reference's order — cohort, batches, then one
-integer seed — so the same ``seed`` samples the same cohorts and batches
-as the JAX runtime; that seed also seeds Sophia's Hutchinson probes.
+``theta_codec`` select the upload codecs (``"dense"``, ``"lowrank_svd"``,
+``"svd"``, ``"power_sketch"``, ``"qblock"`` or an ``"a+b"`` chain; None
+keeps the spec's own), with ``svd_rank``, ``sketch_iters``,
+``qblock_size`` and ``wire_dtype`` (``"f32"`` | ``"bf16"``) as their
+knobs; with a lossy delta codec and ``error_feedback`` the run carries
+stacked ``(N, ...)`` f32 residuals as per-client state, beside any state
+the algorithm declares (SCAFFOLD's control variates).  The round draws
+from one numpy generator in the reference's order — cohort, batches, then
+one integer seed — so the same ``seed`` samples the same cohorts and
+batches as the JAX runtime; that seed also seeds Sophia's Hutchinson
+probes.
 Population, pipeline and async modes are not ported.
 """
 from __future__ import annotations
@@ -29,7 +34,9 @@ from repro_torch.core.algorithms import (
 from repro_torch.core.engine import (
     BETA_MAX_AUTO, ExecutorConfig, make_controller,
 )
-from repro_torch.core.transport import Transport, validate_codec_spec
+from repro_torch.core.transport import (
+    Transport, validate_codec_spec, validate_wire_dtype,
+)
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.staging import stage_cohort_batches
 from repro_torch.utils.hw import resolve_device
@@ -49,6 +56,7 @@ class FedConfig:
     lr: Optional[float] = None     # default: paper's per-optimizer lr
     beta: Union[float, str] = 0.5  # FedPAC correction strength (or "auto")
     hessian_freq: int = 10
+    svd_rank: int = 8              # low-rank codec rank (*_light variants)
     seed: int = 0
     server_lr: float = 1.0
     runtime: str = "sync"
@@ -58,6 +66,9 @@ class FedConfig:
     delta_codec: Optional[str] = None
     error_feedback: bool = True    # EF residuals for lossy delta codecs
     qblock_size: int = 128         # qblock codec: elements per scale
+    sketch_iters: int = 2          # power_sketch subspace iterations
+    wire_dtype: str = "f32"        # wire payload dtype: "f32" (native,
+    #                                lossless) | "bf16" (half-width uploads)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -83,6 +94,8 @@ class FedConfig:
         for codec_spec in (self.theta_codec, self.delta_codec):
             if codec_spec is not None:
                 validate_codec_spec(codec_spec)  # UnknownCodecError early
+        if self.svd_rank < 1:
+            raise ValueError(f"svd_rank must be >= 1, got {self.svd_rank}")
         if self.qblock_size < 1:
             raise ValueError(
                 f"qblock_size must be >= 1, got {self.qblock_size}")
@@ -92,6 +105,10 @@ class FedConfig:
                 f"qblock_size must be a multiple of 128 on a CUDA device "
                 f"(the quantize and dequant_accumulate kernels' block "
                 f"granularity), got {self.qblock_size}")
+        validate_wire_dtype(self.wire_dtype)
+        if self.sketch_iters < 0:
+            raise ValueError(
+                f"sketch_iters must be >= 0, got {self.sketch_iters}")
 
     def executor_config(self) -> ExecutorConfig:
         return ExecutorConfig(backend=self.executor)
@@ -99,9 +116,10 @@ class FedConfig:
     def make_transport(self, spec: AlgorithmSpec) -> Transport:
         """Resolve the wire policy for ``spec`` under this config."""
         return spec.make_transport(
-            block=self.qblock_size, delta_codec=self.delta_codec,
+            rank=self.svd_rank, block=self.qblock_size,
+            sketch_iters=self.sketch_iters, delta_codec=self.delta_codec,
             theta_codec=self.theta_codec,
-            error_feedback=self.error_feedback)
+            error_feedback=self.error_feedback, wire_dtype=self.wire_dtype)
 
 
 def resolve_lr(fed: FedConfig, spec_or_opt: Union[AlgorithmSpec, str]

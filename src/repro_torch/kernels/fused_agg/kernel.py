@@ -19,8 +19,7 @@ and block; ``dequant_accumulate`` is the group of one.  The leaf table is
 built here in numpy (``leaf_tables``) and handed to the kernel by value;
 the sums of a call are views into one arena.
 ``lowrank_accumulate``/``sketch_accumulate`` are not Pallas kernels in
-the reference (merged GEMMs left to XLA) and come with the low-rank
-codecs.
+the reference (merged GEMMs left to XLA); they are in ``ops.py``.
 
 Dispatch follows the tensors: CPU tensors take the plain versions
 (``dequant_accumulate_plain``, ``dequant_accumulate_group_plain``), CUDA

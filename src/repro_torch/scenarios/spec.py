@@ -135,7 +135,8 @@ def check_source_kwargs(spec: "ScenarioSpec", defaults: Mapping) -> dict:
 class Scenario:
     """A materialized scenario: the concrete problem the runtime consumes.
     ``problem()`` returns ``(params, loss_fn, client_batch_fn, eval_fn)``;
-    ``device`` is where params and eval data live."""
+    ``device`` is where params and eval data live (a required keyword:
+    no default puts a GPU run's data on the CPU)."""
     spec: ScenarioSpec
     seed: int
     n_clients: int
@@ -143,7 +144,7 @@ class Scenario:
     loss_fn: Callable
     client_batch_fn: Callable
     eval_fn: Optional[Callable]
-    device: Any = "cpu"
+    device: Any = dataclasses.field(kw_only=True)
     partitions: Optional[list] = None
     partition_stats: dict = dataclasses.field(default_factory=dict)
     meta: dict = dataclasses.field(default_factory=dict)

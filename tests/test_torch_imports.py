@@ -18,6 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py",
            ROOT / "tools" / "profile_torch_round.py",
+           ROOT / "tools" / "time_svd_drivers.py",
+           ROOT / "tools" / "gpu_cpu_gap.py",
            ROOT / "tests" / "test_torch_kernels_cuda.py"]
 
 

@@ -375,7 +375,7 @@ def test_fedconfig_codec_fields_validate_and_reach_the_transport(
         with pytest.raises(ValueError):
             FedConfig(device="cpu", **bad)
     with pytest.raises(T.UnknownCodecError):
-        FedConfig(device="cpu", delta_codec="lowrank_svd")
+        FedConfig(device="cpu", delta_codec="lowrank_svd+sketch")
     with pytest.raises(T.UnknownCodecError):
         AlgorithmSpec(name="x", delta_upload="sketch")
     # the CUDA kernels take whole 128-element blocks

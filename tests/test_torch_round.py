@@ -133,16 +133,17 @@ def test_aggregate_matches_jax():
 @pytest.mark.parametrize("ema", [1.0, 0.3])
 def test_auto_controller_steps_match_jax(ema):
     jc = jax_controller("auto", beta_max=0.7, ema=ema)
-    tc = make_controller("auto", beta_max=0.7, ema=ema)
+    tc = make_controller("auto", beta_max=0.7, ema=ema, device="cpu")
     assert tc.adaptive and float(tc.beta) == float(jc.beta) == 0.0
     for nd, fresh in [(0.4, 1.0), (2.5, 0.5), (0.01, 1.0)]:
         jc = jax_update_controller(jc, jnp.float32(nd), fresh)
         tc = update_controller(tc, torch.tensor(nd), fresh)
         assert abs(float(tc.beta) - float(jc.beta)) < 1e-6
         assert abs(float(tc.drift_ema) - float(jc.drift_ema)) < 1e-6
-    fixed = make_controller(0.5, correct=True)
+    fixed = make_controller(0.5, correct=True, device="cpu")
     assert update_controller(fixed, torch.tensor(3.0)) is fixed
-    assert float(make_controller(0.5, correct=False).beta) == 0.0
+    assert float(make_controller(0.5, correct=False,
+                                 device="cpu").beta) == 0.0
 
 
 # ------------------------------------------------------------ whole slice

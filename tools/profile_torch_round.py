@@ -5,8 +5,9 @@
 
 Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
 0.5, K=10; ``fedpac_soap`` by default, Sophia at lr 2e-2 and
-``hessian_freq=10`` as ``chip_smoke.py`` runs it; ``--qblock`` puts both
-uploads on the int8 wire with error feedback), warms up one round, then
+``hessian_freq=10`` as ``chip_smoke.py`` runs it, a ``*_light`` variant
+at Table 6's rank 4; ``--qblock`` puts both uploads on the int8 wire with
+error feedback), warms up one round, then
 traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
@@ -34,10 +35,14 @@ GROUPS = [
     ("sophia_update kernel", ("sophia_update",)),
     ("quantize kernel", ("qblock_quantize",)),
     ("dequant_accumulate kernel", ("dequant_accumulate",)),
+    # the low-rank codecs' SVD (cuSOLVER's bidiagonalisation and Jacobi
+    # kernels), ahead of the QR group's shared Householder patterns
+    ("SVD (cuSOLVER gesvd/gesvdj)",
+     ("gesvd", "svd", "jacobi", "gebrd", "bdsqr", "orgbr")),
     # cuSOLVER's and MAGMA's own kernel names; a bare "qr" would also
     # match "sqrt"
     ("QR refresh (cuSOLVER geqrf/orgqr)",
-     ("geqr", "orgqr", "ungqr", "orgbr", "larf", "householder", "cusolver",
+     ("geqr", "orgqr", "ungqr", "larf", "householder", "cusolver",
       "magma")),
     ("GEMM (cuBLAS: model, refresh product)", ("gemm", "sgemm", "cutlass",
                                                "xmma", "gemv")),
@@ -62,7 +67,9 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from chip_smoke import QBLOCK, SOPHIA_LR, card_line, vit_tiny_spec
+    from chip_smoke import (
+        LIGHT_RANK, QBLOCK, SOPHIA_LR, card_line, vit_tiny_spec,
+    )
     from repro_torch.api import build_experiment, materialize, resolve
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,6 +81,8 @@ def main():
     kw = dict(QBLOCK) if args.qblock else {}
     if resolve(args.algorithm).optimizer == "sophia":
         kw.update(lr=SOPHIA_LR, hessian_freq=10)
+    if args.algorithm.endswith("_light"):
+        kw.update(svd_rank=LIGHT_RANK)
     opt_kwargs = ({} if args.eig_method is None
                   else {"eig_method": args.eig_method})
     exp = build_experiment(args.algorithm, scenario=scn, participation=0.5,
