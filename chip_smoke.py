@@ -30,6 +30,26 @@ to 0 just before it and read just after:
     ``power_sketch`` Theta upload on ``cifar_like_cnn``, whose round
     metrics must all live on the card.
 
+Then the buffered-asynchronous runtime (``fed.async_runtime``, 10
+clients, 5 buffered of 10 in flight, the async quickstart's latency
+model, 3 flushes), one client a dispatch: ``fedpac_soap`` at ViT-Tiny
+width (K=10; its server saved after flush 2 with ``CheckpointManager``,
+restored bitwise into a fresh CUDA template, and its trace continued from
+the saved tracer identity), ``fedpac_sophia`` on the qblock wire with
+error feedback and ``max_staleness=1`` (discarded arrivals restored into
+their residual rows), and ``fedpac_soap`` on ``cifar_like_cnn`` against
+the CPU path (simulated fields exact, metrics and telemetry at SOAP's CNN
+tolerances).  Each async path checks its trace (schema, contiguous
+numbering, one ``client_dropped`` event per dropped or discarded
+arrival, the buffer in each staleness histogram, finite telemetry) and
+its launches: 5 ``matmul_fused`` a SOAP step of each trained dispatch;
+for Sophia one ``sophia_update`` a step and 2 ``quantize`` a dispatch,
+and 3 ``dequant_accumulate`` a flush.  The async flush of one-client
+qblock messages with unit weights is held bitwise against the sync
+``aggregate_wire``, and ``obs.profile_kernels`` prints its "ref" and
+"kernel" rows for the five triads at 256x256 and 768x768 and holds each
+kernel output against the plain one.
+
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
 refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
@@ -109,6 +129,27 @@ MUON_LIGHT = dict(delta_codec="qblock", theta_codec="lowrank_svd+qblock",
 NS_TOL = 1e-4
 CUDA_SOURCES = ("matmul_fused.cu", "sophia_update.cu", "qblock.cu",
                 "fused_agg.cu")
+# the buffered-async runtime: examples/async_quickstart.py's latency model
+# with 5 of 10 in-flight clients buffered a flush; the runtime's seed 5
+# makes dropouts happen in 3 flushes (and, with max_staleness=1,
+# discards), checked on the CPU event stream, which no device changes
+ASYNC_FLUSHES = 3
+ASYNC_SEED = 5
+ASYNC_KW = dict(buffer_size=5, concurrency=10, staleness_mode="poly",
+                staleness_alpha=0.5)
+ASYNC_LATENCY = dict(heterogeneity=1.5, jitter=0.5, dropout=0.05)
+ASYNC_SOAP_K = 10
+# the Sophia and CNN async paths take K=5: the flush's count of launches
+# and the CPU reference's time are what they check, not K
+ASYNC_K = 5
+# the async CNN's telemetry against the CPU path: drift-like fields at
+# SOAP's 5% (CNN_REL_TOL), the update/correction cosine at 0.05 of its
+# unit range, the controller's fields to f32 roundoff
+TELEMETRY_REL = {"drift": 0.05, "norm_drift": 0.05,
+                 "client_geom_dist": 0.05}
+TELEMETRY_ABS = {"update_corr_cos": 0.05, "beta": 1e-6, "beta_next": 1e-6,
+                 "drift_ema": 1e-6, "freshness": 1e-6}
+PROFILE_SHAPES = ((256, 256), (768, 768))
 
 
 def log(*a):
@@ -338,27 +379,15 @@ def check_adam_moments(leaves):
 def check_soap_rotated_update(leaves):
     """The composition, two-sided and one-sided, against the same
     composition of plain versions; directions within 1e-4 max(1, |d|)."""
-    from repro_torch.kernels.ns_ortho.kernel import matmul_fused_plain
-    from repro_torch.kernels.soap_rotate.kernel import adam_moments_plain
-    from repro_torch.kernels.soap_rotate.ops import soap_rotated_update
-
-    def plain(g, ql, qr, m, v):
-        if ql is not None:
-            g = matmul_fused_plain(ql.transpose(1, 2), g)
-        if qr is not None:
-            g = matmul_fused_plain(g, qr)
-        n, m2, v2 = adam_moments_plain(g, m, v, step=3)
-        if ql is not None:
-            n = matmul_fused_plain(ql, n)
-        if qr is not None:
-            n = matmul_fused_plain(n, qr.transpose(1, 2))
-        return n, m2, v2
-
+    from repro_torch.kernels.soap_rotate.ops import (
+        soap_rotated_update, soap_rotated_update_plain,
+    )
     worst = 0.0
     for (m, n, s), x in leaves:
         for ql, qr in ((x["ql"], x["qr"]), (None, x["qr"]), (x["ql"], None)):
             got = soap_rotated_update(x["g"], ql, qr, x["M"], x["V"], step=3)
-            want = plain(x["g"], ql, qr, x["M"], x["V"])
+            want = soap_rotated_update_plain(x["g"], ql, qr, x["M"], x["V"],
+                                             step=3)
             for gv, wv in zip(got, want):
                 err = (gv - wv).abs()
                 worst = max(worst, float(err.max()))
@@ -673,6 +702,50 @@ def check_newton_schulz(mats):
         f"2(k+2)u sum|a||b|); output vs plain max |err| {worst:.3e} "
         f"(tol {NS_TOL})")
     return worst
+
+
+def check_profile_kernels(dev):
+    """``obs.profile_kernels`` on the card at ``PROFILE_SHAPES``: a "ref"
+    (plain) and a "kernel" row for each of the five triads, printed as one
+    line; then each triad's kernel output against its plain output on the
+    same inputs, within the bound its own check above holds it to
+    (soap_rotate 1e-4 max(1, |x|); quantize and sophia_update bitwise;
+    Newton–Schulz ``NS_TOL``; dequant_accumulate 4Bu sum|w s q|)."""
+    from repro_torch.obs import profile_kernels
+    from repro_torch.obs.profiling import IMPLS, KERNELS, kernel_cases
+    recs = profile_kernels(shapes=PROFILE_SHAPES, device="cuda")
+    got = {(r["kernel"], r["impl"], tuple(r["shape"])) for r in recs}
+    want = {(k, i, tuple(s)) for k in KERNELS for i in IMPLS
+            for s in PROFILE_SHAPES}
+    if got != want or any(r["backend"] != "cuda" or r["interpret"]
+                          for r in recs):
+        raise AssertionError(f"profile_kernels rows {sorted(got)}")
+    log(json.dumps({"profile_kernels": recs}))
+    for shape in PROFILE_SHAPES:
+        for name, fns, args, _, _ in kernel_cases(shape, device=dev):
+            ref, ker = fns["ref"](*args), fns["kernel"](*args)
+            if name == "soap_rotate":
+                bad = sum(int(((k - r).abs() > 1e-4 * r.abs().clamp(
+                    min=1.0)).sum()) for k, r in zip(ker, ref))
+            elif name == "qblock":
+                bad = int((ker[0] != ref[0]).sum()) + bits_differ(ker[1],
+                                                                  ref[1])
+            elif name == "sophia_update":
+                bad = sum(bits_differ(k, r) for k, r in zip(ker, ref))
+            elif name == "ns_ortho":
+                bad = int(((ker - ref).abs() > NS_TOL).sum())
+            else:
+                q, scale, w = args
+                mag = ((w[:, None] * scale).repeat_interleave(128, dim=1)
+                       .abs() * q.float().abs()).sum(0)
+                bad = int(((ker - ref).abs()
+                           > 4 * q.shape[0] * U * mag + 1e-30).sum())
+            if bad:
+                raise AssertionError(f"profile_kernels {name} at {shape}: "
+                                     f"{bad} kernel values outside the "
+                                     "bound of the plain version")
+    log(f"profile_kernels at {list(PROFILE_SHAPES)}: every kernel row's "
+        "output within its bound of the ref row's")
 
 
 # ----------------------------------------------------------------- timing
@@ -1210,6 +1283,280 @@ def main_paths(vit_shapes, cnn_shapes):
     return total
 
 
+def async_config(**kw):
+    from repro_torch.api import AsyncConfig, LatencyModel
+    return AsyncConfig(latency=LatencyModel(**ASYNC_LATENCY), **ASYNC_KW,
+                       **kw)
+
+
+def run_async(label, exp, expect=(), after_flush=None):
+    """Drive ``exp``'s flushes with the launch counters set to 0 just
+    before and read just after, and a ``MemorySink`` attached: every event
+    must pass ``validate_event`` with contiguous numbering, the
+    ``client_dropped`` events must number ``total_dropped +
+    total_discarded``, the scheduler's dispatches must split into trained
+    ones (one ``local_update`` span each) and dropped ones, each flush's
+    staleness histogram must hold the buffer and its telemetry be finite,
+    and ``upload_bytes`` must equal ``comm_bytes_per_round()``.
+    ``after_flush(exp, sink, flush)`` runs after each flush.  Returns
+    (history, launches, trained dispatches, sink)."""
+    from repro_torch.obs import MemorySink, attach, validate_event
+    sink = MemorySink()
+    attach(exp, sink)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    secs, dispatches = [], []
+    for flush in range(1, exp.fed.rounds + 1):
+        d0 = exp.scheduler._seq
+        t0 = time.perf_counter()
+        rec = exp.run_round()   # ends in host reads of the metrics
+        secs.append(time.perf_counter() - t0)
+        dispatches.append(exp.scheduler._seq - d0)
+        log(f"{label} flush {flush}: {secs[-1]:.2f} s, {dispatches[-1]} "
+            "dispatches " + json.dumps({k: rec[k] for k in sorted(rec)}))
+        for k in ("loss", "test_loss", "drift", "norm_drift"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"{label}: non-finite {k} {rec[k]}")
+        if after_flush is not None:
+            after_flush(exp, sink, flush)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"{label}: launches " + json.dumps(launches))
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} was never launched")
+    for ev in sink.events:
+        validate_event(ev)
+    if [e["seq"] for e in sink.events] != list(range(len(sink.events))):
+        raise AssertionError(f"{label}: trace numbering is not contiguous")
+    drops = sum(e["event"] == "client_dropped" for e in sink.events)
+    if drops != exp.total_dropped + exp.total_discarded:
+        raise AssertionError(f"{label}: {drops} client_dropped events, "
+                             f"{exp.total_dropped} dropped + "
+                             f"{exp.total_discarded} discarded")
+    trained = sum(e.get("phase") == "local_update" for e in sink.events)
+    in_flight_dropped = sum(ev.dropped for ev in exp.scheduler._heap)
+    if exp.scheduler._seq != trained + exp.total_dropped + in_flight_dropped:
+        raise AssertionError(f"{label}: {exp.scheduler._seq} dispatches, "
+                             f"{trained} trained")
+    for e in sink.rounds():
+        tele = e["telemetry"]
+        if sum(tele["staleness_hist"]) != exp.acfg.buffer_size:
+            raise AssertionError(f"{label}: staleness histogram "
+                                 f"{tele['staleness_hist']}")
+        vals = [v for v in tele.values() if not isinstance(v, list)]
+        vals += tele["client_geom_dist"]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{label}: non-finite telemetry {tele}")
+    check_wire_bytes(label, exp, exp.history)
+    log(f"{label}: {sum(secs) / len(secs):.2f} s and "
+        f"{sum(dispatches) / len(dispatches):.1f} dispatches a flush "
+        f"({trained} trained, {exp.total_dropped} dropped, "
+        f"{exp.total_discarded} discarded over {len(secs)} flushes; the "
+        f"first flush fills {exp.scheduler.concurrency} slots)")
+    return exp.history, launches, trained, sink
+
+
+def checkpoint_and_resume(exp, sink):
+    """Saves ``exp``'s server and tracer identity with
+    ``CheckpointManager``, restores the server into a fresh CUDA template
+    (every tensor bitwise equal) and continues the trace from the saved
+    identity into ``sink``."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import init_server
+    from repro_torch.core.algorithms import zero_theta
+    from repro_torch.core.engine import make_controller
+    from repro_torch.obs import Tracer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    zeros = tree_map(torch.zeros_like, exp.server.params)
+    tmpl = dataclasses.replace(
+        init_server(zeros, geom=make_controller(0.0, device="cuda")),
+        theta=zero_theta(exp.opt, zeros))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(d, keep=1)
+        mgr.save(exp.server, telemetry=exp.tracer.state())
+        restored = mgr.restore(tmpl)
+        meta = mgr.restore_meta()
+        secs = time.perf_counter() - t0
+    n = bad = 0
+    for name in ("params", "theta", "g_global"):
+        for a, b in zip(tree_leaves(getattr(exp.server, name)),
+                        tree_leaves(getattr(restored, name))):
+            n += 1
+            bad += int(b.device.type != "cuda" or a.shape != b.shape
+                       or bits_differ(b, a) > 0)
+    same_geom = all(torch.equal(getattr(restored.geom, f),
+                                getattr(exp.server.geom, f))
+                    for f in ("beta", "drift_ema"))
+    if bad or not same_geom or (restored.round, restored.theta_version) != (
+            exp.server.round, exp.server.theta_version):
+        raise AssertionError(f"checkpoint: {bad} of {n} tensors differ "
+                             "after the restore")
+    tracer = Tracer.from_state(meta["telemetry"], sinks=(sink,))
+    if (tracer.run_id, tracer.seq) != (exp.tracer.run_id, exp.tracer.seq):
+        raise AssertionError("checkpoint: the tracer's identity changed")
+    exp.tracer = tracer      # the next flush continues the numbering
+    log(f"checkpoint after flush {exp.server.round}: {n} tensors saved and "
+        f"restored bitwise into a CUDA template in {secs:.2f} s; trace "
+        f"resumes at seq {tracer.seq}")
+
+
+def check_zero_staleness(vit_shapes, dev, gen):
+    """The async flush with w_i = 1 on one-client qblock messages joined
+    along the client axis, against the sync ``aggregate_wire`` on the
+    cohort's own encode: params, Theta and g_G bitwise equal."""
+    from repro_torch.core import transport as T
+    from repro_torch.core.engine import (
+        AggregationConfig, aggregate_wire, make_controller,
+    )
+    from repro_torch.fed.async_runtime import make_async_aggregate_fn
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def tree(lead, scale=1.0):
+        return {str(i): torch.randn((*lead, *shape), generator=gen,
+                                    device=dev) * scale
+                for i, shape in enumerate(vit_shapes)}
+
+    params, g = tree(()), tree(())
+    theta = tree_map(torch.abs, tree(()))
+    deltas = tree((S_VIT,), 1e-2)
+    thetas = tree_map(torch.abs, tree((S_VIT,)))
+    tr = T.Transport(delta=T.QBlock(), theta=T.QBlock())
+    cfg = AggregationConfig(lr=SOPHIA_LR, local_steps=10)
+    ones = torch.ones(S_VIT, device=dev)
+    want = aggregate_wire(params, theta, g, tr.delta.encode(deltas), ones,
+                          cfg, tr, tmsgs=tr.theta.encode(thetas))
+
+    def joined(codec, x):
+        return T.concat_clients([codec.encode(tree_map(
+            lambda t: t[i:i + 1], x)) for i in range(S_VIT)])
+
+    flush = make_async_aggregate_fn(lr=SOPHIA_LR, local_steps=10,
+                                    transport=tr, telemetry=True)
+    got = flush(params, theta, g, make_controller(0.5, device=dev),
+                joined(tr.delta, deltas), joined(tr.theta, thetas), ones,
+                torch.zeros(S_VIT, dtype=torch.int32, device=dev))
+    bad = sum(bits_differ(b, a) for i in range(3)
+              for a, b in zip(tree_leaves(want[i]), tree_leaves(got[i])))
+    if bad:
+        raise AssertionError(f"zero-staleness flush vs sync aggregate_wire: "
+                             f"{bad} values differ")
+    log(f"zero staleness: the async flush of {S_VIT} one-client qblock "
+        f"messages (w = 1) equals the sync aggregate_wire bitwise on "
+        f"{len(vit_shapes)} ViT-Tiny leaves (params, Theta, g_G)")
+
+
+def async_paths(total):
+    """The buffered-async runtime: ViT-Tiny ``fedpac_soap`` (with a
+    checkpoint after flush 2) and ``fedpac_sophia`` on the qblock wire
+    with error feedback and ``max_staleness=1``, then CNN ``fedpac_soap``
+    against the CPU path.  Adds each kernel's launches to ``total``."""
+    from repro_torch.api import build_experiment, materialize
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+
+    spec = vit_tiny_spec()
+    vit = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
+    k = ASYNC_SOAP_K
+    label = "vit_tiny async fedpac_soap"
+    exp = build_experiment(
+        "fedpac_soap", scenario=vit, rounds=ASYNC_FLUSHES, local_steps=k,
+        seed=ASYNC_SEED, async_cfg=async_config())
+    _, launches, trained, _ = run_async(
+        label, exp, ("matmul_fused", "adam_moments"),
+        after_flush=lambda e, sink, f: (checkpoint_and_resume(e, sink)
+                                        if f == 2 else None))
+    # SOAP's step is 5 grouped launches over the one client's leaves
+    if launches["matmul_fused"] != 5 * k * trained:
+        raise AssertionError(f"{label}: {launches['matmul_fused']} "
+                             f"matmul_fused launches, want 5 x {k} x "
+                             f"{trained} trained dispatches")
+    for name, n in launches.items():
+        total[name] += n
+    del exp
+
+    label = "vit_tiny async fedpac_sophia qblock+ef max_staleness=1"
+    k = ASYNC_K
+    exp = build_experiment(
+        "fedpac_sophia", scenario=vit, rounds=ASYNC_FLUSHES, local_steps=k,
+        seed=ASYNC_SEED, lr=SOPHIA_LR, hessian_freq=10, **QBLOCK,
+        async_cfg=async_config(max_staleness=1))
+    _, launches, trained, _ = run_async(
+        label, exp, ("sophia_update", "quantize", "dequant_accumulate"))
+    if not exp.total_discarded:
+        raise AssertionError(f"{label}: no arrival was discarded")
+    # a dispatch: one sophia_update a local step, one quantize for the
+    # delta and one for Theta (the EF residual decodes in plain PyTorch);
+    # a flush: one dequant_accumulate for the delta and two for Theta (the
+    # telemetry's Theta decode and a discard's restore are plain PyTorch)
+    for name, want in (("sophia_update", k * trained),
+                       ("quantize", 2 * trained),
+                       ("dequant_accumulate", 3 * ASYNC_FLUSHES)):
+        if launches[name] != want:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, want {want}")
+    for name, n in launches.items():
+        total[name] += n
+    del exp, vit
+
+    label = "cifar_like_cnn async fedpac_soap"
+    cnn = materialize("cifar_like_cnn", seed=0, device="cuda")
+    cnn_cpu = dataclasses.replace(
+        materialize("cifar_like_cnn", seed=0, device="cpu"),
+        params=params_from_numpy(params_to_numpy(cnn.params), "cpu"))
+    kw = dict(rounds=ASYNC_FLUSHES, local_steps=ASYNC_K, seed=ASYNC_SEED,
+              opt_kwargs={"eps": CNN_EPS}, async_cfg=async_config())
+    exp = build_experiment("fedpac_soap", scenario=cnn, **kw)
+    inner = exp._flush_fn
+
+    def flush_on_card(*args):
+        out = inner(*args)
+        off = {k: str(v.device) for k, v in out[4].items()
+               if isinstance(v, torch.Tensor) and v.device.type != "cuda"}
+        if off:
+            raise AssertionError(f"{label}: flush metrics off the card {off}")
+        return out
+
+    exp._flush_fn = flush_on_card
+    gpu, launches, trained, sink = run_async(label, exp,
+                                             ("matmul_fused",))
+    if launches["matmul_fused"] != 5 * exp.fed.local_steps * trained:
+        raise AssertionError(f"{label}: {launches['matmul_fused']} "
+                             "matmul_fused launches")
+    for name, n in launches.items():
+        total[name] += n
+    ref, _, _, ref_sink = run_async(f"{label} (cpu reference)",
+                                    build_experiment(
+                                        "fedpac_soap", scenario=cnn_cpu,
+                                        device="cpu", **kw))
+    for r, (w, g) in enumerate(zip(ref, gpu)):
+        for key in ("sim_time", "staleness", "max_staleness", "dropped",
+                    "discarded"):
+            if w[key] != g[key]:
+                raise AssertionError(f"{label} GPU vs CPU flush {r + 1} "
+                                     f"{key}: {g[key]} vs {w[key]}")
+    compare_histories(label, ref, gpu, CNN_TOL, CNN_REL_TOL)
+    for r, (w, g) in enumerate(zip(ref_sink.rounds(), sink.rounds())):
+        wt, gt = w["telemetry"], g["telemetry"]
+        if gt["staleness_hist"] != wt["staleness_hist"]:
+            raise AssertionError(f"{label} flush {r + 1}: staleness hist")
+        for key, t in TELEMETRY_REL.items():
+            for a, b in zip(*(([x[key]] if key != "client_geom_dist" else
+                               x[key]) for x in (wt, gt))):
+                if abs(a - b) > t * abs(a):
+                    raise AssertionError(f"{label} GPU vs CPU flush {r + 1} "
+                                         f"telemetry {key}: {b} vs {a}")
+        for key, t in TELEMETRY_ABS.items():
+            if abs(wt[key] - gt[key]) > t:
+                raise AssertionError(f"{label} GPU vs CPU flush {r + 1} "
+                                     f"telemetry {key}: {gt[key]} vs "
+                                     f"{wt[key]}")
+    log(f"{label}: simulated fields equal and telemetry within its "
+        "tolerances of the CPU path")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1245,11 +1592,14 @@ def main():
     errs["dequant_accumulate"] = check_dequant_accumulate(stacked, dev, gen)
     mats = vit_matrix_leaves(dev, gen)
     errs["newton_schulz"] = check_newton_schulz(mats)
+    check_profile_kernels(dev)
+    check_zero_staleness(vit_shapes, dev, gen)
     timings = time_kernels(dev, gen)
     timings.update(time_sophia_and_wire_kernels(vit_shapes, dev, gen))
     timings.update(time_newton_schulz(mats))
     del mats
     launches = main_paths(vit_shapes, cnn_shapes)
+    async_paths(launches)
 
     meta = {
         "adam_moments": dict(

@@ -11,6 +11,10 @@ hand-written Hopper kernels.  Runs on the GPU by default:
   QUICKSTART_DEVICE=cpu python examples/torch_quickstart.py   # plain path
 
 QUICKSTART_ROUNDS / QUICKSTART_SAMPLES shrink the run.
+QUICKSTART_TRACE=path.jsonl appends the structured trace of every arm
+(phase spans and per-round telemetry: drift, beta, staleness histogram,
+per-client geometry distances — see ``repro_torch.obs``), in the
+reference quickstart's format.
 """
 import os
 import sys
@@ -26,6 +30,7 @@ from repro_torch.api import (  # noqa: E402
 ROUNDS = int(os.environ.get("QUICKSTART_ROUNDS", "15"))
 N = int(os.environ.get("QUICKSTART_SAMPLES", "3000"))
 DEVICE = os.environ.get("QUICKSTART_DEVICE", "cuda")
+TRACE = os.environ.get("QUICKSTART_TRACE")
 
 spec = resolve_scenario("cifar_like_cnn")
 scenario = materialize(
@@ -44,6 +49,9 @@ for label, algo, kw in ARMS:
     exp = build_experiment(algo, scenario=scenario, participation=0.5,
                            rounds=ROUNDS, local_steps=5, beta=0.5,
                            device=DEVICE, **kw)
+    if TRACE:
+        from repro_torch.obs import JsonlSink, attach
+        attach(exp, JsonlSink(TRACE, append=True))
     hist = exp.run()
     print(f"{label:20s} acc={hist[-1]['test_acc']:.3f} "
           f"loss={hist[-1]['loss']:.3f} drift={hist[-1]['drift']:.2e} "

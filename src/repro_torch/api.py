@@ -1,5 +1,6 @@
-"""Top-level public API: the algorithm and scenario registries and the one
-experiment builder — counterpart of ``repro/api.py`` (sync runtime only).
+"""Top-level public API: the algorithm and scenario registries and
+``build_experiment`` — counterpart of ``repro/api.py`` (the sync and
+buffered-asynchronous runtimes).
 
     from repro_torch.api import build_experiment
 
@@ -9,6 +10,9 @@ experiment builder — counterpart of ``repro/api.py`` (sync runtime only).
 
     exp = build_experiment("fedpac_soap", scenario="cifar_like_cnn",
                            device="cpu")           # plain PyTorch path
+
+    exp = build_experiment("fedpac_soap", scenario="cifar_like_cnn",
+                           async_cfg=AsyncConfig(buffer_size=5))  # async
 
 Every registered algorithm builds the same way: ``fedavg``, ``fedcm``,
 ``scaffold``, ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,
@@ -27,6 +31,9 @@ from repro_torch.core.algorithms import (  # noqa: F401  (re-exported API)
     AlgorithmSpec, ClientStateSpec, DuplicateAlgorithmError,
     UnknownAlgorithmError, register, registered, resolve,
 )
+from repro_torch.fed.async_runtime import (  # noqa: F401
+    AsyncConfig, AsyncFederatedExperiment, LatencyModel,
+)
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.rounds import FedConfig, FederatedExperiment
 from repro_torch.scenarios import (  # noqa: F401  (re-exported API)
@@ -41,8 +48,10 @@ from repro_torch.scenarios import (  # noqa: F401
 from repro_torch.utils.hw import resolve_device
 
 __all__ = [
-    "AlgorithmSpec", "ClientStateSpec", "DuplicateAlgorithmError",
-    "DuplicateScenarioError", "FedConfig", "FedExperiment", "PartitionSpec",
+    "AlgorithmSpec", "AsyncConfig", "AsyncFederatedExperiment",
+    "ClientStateSpec", "DuplicateAlgorithmError",
+    "DuplicateScenarioError", "FedConfig", "FedExperiment", "LatencyModel",
+    "PartitionSpec",
     "Scenario", "ScenarioSpec", "UnknownAlgorithmError",
     "UnknownScenarioError", "build_experiment", "materialize", "register",
     "register_scenario", "registered", "registered_scenarios", "resolve",
@@ -60,10 +69,13 @@ def build_experiment(
     eval_fn: Optional[Callable] = None,
     opt_kwargs: Optional[dict] = None,
     fed: Optional[FedConfig] = None,
+    async_cfg: Optional[AsyncConfig] = None,
+    traffic=None,
+    population=None,
     **fed_overrides,
 ) -> FedExperiment:
-    """Build the sync runtime for ``algorithm`` on ``scenario`` (or on an
-    explicit problem bundle) with keyword configuration.
+    """Build the runtime the config names for ``algorithm`` on ``scenario``
+    (or on an explicit problem bundle) with keyword configuration.
 
     algorithm: registered name or an ``AlgorithmSpec``.
     scenario: registered name, a ``ScenarioSpec``, or a pre-materialized
@@ -73,9 +85,21 @@ def build_experiment(
       ``n_clients`` becomes the config's.
     fed / fed_overrides: a base ``FedConfig`` and field overrides, e.g.
       ``rounds=30, device="cpu"``.  The device defaults to ``"cuda"``.
+    async_cfg: the async runtime's knobs; implies ``runtime="async"`` when
+      no config and no ``runtime`` override was passed — an explicit one
+      is authoritative, and a sync one with ``async_cfg`` is an error.
+    traffic, population: the continuous-traffic runtime and population
+      mode are not ported; passing either raises NotImplementedError.
     """
+    if traffic is not None:
+        raise NotImplementedError(
+            "the continuous-traffic runtime is not ported (ROADMAP queue 1 "
+            "item 9: fed/traffic)")
     spec = resolve(algorithm)
     changes = dict(fed_overrides, algorithm=spec.name)
+    if async_cfg is not None and fed is None and \
+            "runtime" not in fed_overrides:
+        changes["runtime"] = "async"
 
     if scenario is not None:
         explicit = [n for n, v in [("params", params), ("loss_fn", loss_fn),
@@ -116,7 +140,21 @@ def build_experiment(
             "build_experiment needs either scenario= or the explicit "
             "params/loss_fn/client_batch_fn bundle")
 
-    exp = FederatedExperiment(cfg, params, loss_fn, client_batch_fn, eval_fn,
-                              opt_kwargs, spec=spec)
+    if cfg.runtime == "sync":
+        if async_cfg is not None:
+            raise ValueError(
+                "async_cfg given but the config says runtime='sync' — set "
+                "runtime='async' (or drop the async_cfg)")
+        if population is not None:
+            raise NotImplementedError(
+                "population mode is not ported (ROADMAP queue 1 item 8: "
+                "fed/population)")
+        exp = FederatedExperiment(cfg, params, loss_fn, client_batch_fn,
+                                  eval_fn, opt_kwargs, spec=spec)
+    else:
+        exp = AsyncFederatedExperiment(cfg, params, loss_fn, client_batch_fn,
+                                       eval_fn, opt_kwargs,
+                                       async_cfg=async_cfg, spec=spec,
+                                       population=population)
     exp.scenario = scn
     return exp

@@ -24,8 +24,8 @@ Builtins: ``fedavg``, ``fedcm`` (FedCM's beta pinned to 0.9), the
 ``local_*``, ``fedpac_*``, ``align_only_*`` and ``correct_only_*`` of
 every optimizer (SGD, AdamW, Muon, SOAP, Sophia), ``scaffold``,
 ``fedpm_{adamw,sophia,muon,soap}``, and ``<registered>_light`` (the
-rank-r SVD Theta upload), derived on resolution.  ``telemetry=True`` is
-accepted and ignored until ``obs`` is ported.
+rank-r SVD Theta upload), derived on resolution.  ``telemetry=True``
+adds the round's ``obs.telemetry.Telemetry`` to its metrics.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from repro_torch.core.engine import (
     update_controller,
 )
 from repro_torch.core.server import ServerState
+from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.optim.api import LocalOptimizer
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -424,10 +425,13 @@ def build_round_fn(
     plain dense path.  ``seed`` is the round's random draw: it seeds
     Sophia's Hutchinson probes, where the reference splits its round key.
     ``probe_fn(seed, k) -> stacked probe tree`` replaces those probes (the
-    parity tests inject the reference's).  ``telemetry`` is accepted and
-    ignored until ``obs`` is ported.
+    parity tests inject the reference's).  ``telemetry=True`` computes the
+    round's ``Telemetry`` (``obs.telemetry.collect``, the call the async
+    flush makes, so a zero-staleness flush's telemetry equals the sync
+    round's bitwise) and returns it under ``metrics["telemetry"]``; on a
+    lossy Theta codec the fused flush then decodes the stacked Theta for
+    the geometry sketch.
     """
-    del telemetry
     if transport is not None and compress_fn is not None:
         raise ValueError("pass either transport or the legacy compress_fn, "
                          "not both")
@@ -470,15 +474,18 @@ def build_round_fn(
             batches, seed=seed, probe_fn=round_probes)
         weights = torch.ones((s,), dtype=torch.float32, device=loss.device)
         total = None
+        step = deltas = None
         if fused:
             # exact host-side byte counts from the wire structures
             total = T.wire_bytes(dchan)
             if encode_theta:
                 total += T.wire_bytes(thetas)
-            params, new_theta, new_g, agg, _ = aggregate_wire(
+            params, new_theta, new_g, agg, aux = aggregate_wire(
                 server.params, theta, server.g_global, dchan, weights,
                 agg_cfg, transport, tmsgs=thetas if encode_theta else None,
-                thetas=None if encode_theta else thetas)
+                thetas=None if encode_theta else thetas,
+                need_thetas=telemetry)
+            step, thetas = aux["step"], aux["thetas"]
         else:
             deltas = dchan
             if transport is not None:
@@ -506,6 +513,11 @@ def build_round_fn(
         new_ctrl = update_controller(ctrl, agg["norm_drift"],
                                      agg["freshness"])
         metrics = dict(agg, loss=loss, beta=ctrl.beta)
+        if telemetry:
+            metrics["telemetry"] = obs_telemetry.collect(
+                deltas=deltas, step=step, thetas=thetas, weights=weights,
+                g_global=server.g_global, ctrl=ctrl, new_ctrl=new_ctrl,
+                agg_metrics=agg)
         if total is not None:
             metrics.update(upload_bytes=total // s, upload_total_bytes=total,
                            cohort_size=s)

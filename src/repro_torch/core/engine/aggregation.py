@@ -116,7 +116,7 @@ def aggregate(params, theta, g_global, deltas, thetas, weights,
 
 def aggregate_wire(params, theta, g_global, dmsgs, weights,
                    cfg: AggregationConfig, transport, *, tmsgs=None,
-                   thetas=None):
+                   thetas=None, need_thetas: bool = False):
     """The fused wire-native server update: encoded uploads accumulate
     straight into the weighted sums (``Codec.accumulate``).
 
@@ -126,9 +126,11 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
     dense) and take the exact classic drift path; lossy codecs (qblock)
     compute drift wire-natively from per-client squared norms
     (``Codec.sq_norms``) and the accumulated mean, never decoding the
-    stack.  Returns (new_params, new_theta, new_g, metrics, aux) with
+    stack.  ``need_thetas=True`` decodes a lossy stack as well, for the
+    telemetry's geometry sketch; the training numerics do not change with
+    it.  Returns (new_params, new_theta, new_g, metrics, aux) with
     ``aux["step"]`` the weighted delta mean and ``aux["thetas"]`` the
-    decoded stack (None on the lossy path).
+    decoded stack (None on the lossy path without ``need_thetas``).
     """
     if tmsgs is not None and thetas is not None:
         raise ValueError("pass theta uploads as tmsgs (wire) or thetas "
@@ -140,6 +142,8 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
     if tmsgs is not None and not transport.theta.lossless:
         # wire-native drift: Def. 1 decomposed as
         # mean_i ||Theta_i||^2 - ||mean_i Theta_i||^2, clamped at 0
+        if need_thetas:
+            thetas = transport.theta.decode(tmsgs)
         sq = transport.theta.sq_norms(tmsgs)
         usum = transport.theta.accumulate(
             tmsgs, torch.ones((b,), dtype=torch.float32, device=w.device))

@@ -11,9 +11,9 @@ codecs for federated uploads.
 """
 from repro_torch.core.transport.base import (
     Codec, LeafMsg, Transport, TransportConfig, UnknownCodecError,
-    WIRE_DTYPES, WireMsg, dense_leaf, register_codec, registered_codecs,
-    resolve_codec, validate_codec_spec, validate_wire_dtype, wire_bytes,
-    wire_cast,
+    WIRE_DTYPES, WireMsg, concat_clients, dense_leaf, register_codec,
+    registered_codecs, resolve_codec, validate_codec_spec,
+    validate_wire_dtype, wire_bytes, wire_cast,
 )
 from repro_torch.core.transport.dense import Dense
 from repro_torch.core.transport.lowrank import LowRankSVD, PowerSketch
@@ -26,8 +26,8 @@ from repro_torch.core.transport.error_feedback import (
 __all__ = [
     "Chain", "Codec", "Dense", "LeafMsg", "LowRankSVD", "PowerSketch",
     "QBlock", "Transport", "TransportConfig", "UnknownCodecError",
-    "WIRE_DTYPES", "WireMsg", "dense_leaf", "ef_init", "ef_scatter",
-    "ef_view", "encode_with_feedback", "register_codec",
+    "WIRE_DTYPES", "WireMsg", "concat_clients", "dense_leaf", "ef_init",
+    "ef_scatter", "ef_view", "encode_with_feedback", "register_codec",
     "registered_codecs", "resolve_codec", "validate_codec_spec",
     "validate_wire_dtype", "wire_bytes", "wire_cast",
 ]

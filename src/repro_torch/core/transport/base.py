@@ -91,6 +91,33 @@ def wire_bytes(msg: WireMsg) -> int:
     return int(total)
 
 
+def _join_leaf(*msgs: LeafMsg) -> LeafMsg:
+    parts = (None if msgs[0].parts is None else
+             {k: torch.cat([m.parts[k] for m in msgs])
+              for k in msgs[0].parts})
+    rows = sum(m.shape[0] for m in msgs)
+    return dataclasses.replace(msgs[0], shape=(rows, *msgs[0].shape[1:]),
+                               parts=parts)
+
+
+def concat_clients(uploads):
+    """Client-stacked uploads of one channel joined along the client axis:
+    ``WireMsg``s of one codec (payloads, their stacked shapes and a
+    chain's envelopes alike) or dense stacked trees; None stays None.
+    The async runtime's buffer stacks one-client messages this way."""
+    first = uploads[0]
+    if first is None:
+        return None
+    if isinstance(first, WireMsg):
+        leaves = tree_map(_join_leaf, first.leaves,
+                          *[m.leaves for m in uploads[1:]])
+        envelopes = tuple(
+            tree_map(_join_leaf, *frames)
+            for frames in zip(*[m.envelopes for m in uploads]))
+        return WireMsg(first.codec, leaves, envelopes)
+    return tree_map(lambda *xs: torch.cat(xs), *uploads)
+
+
 def dense_leaf(leaf, wire_dtype: str = "f32") -> LeafMsg:
     """Passthrough envelope: the leaf itself is the payload (cast to the
     wire dtype on the way out; the envelope keeps the decode target)."""

@@ -16,8 +16,13 @@ the algorithm declares (SCAFFOLD's control variates).  The round draws
 from one numpy generator in the reference's order — cohort, batches, then
 one integer seed — so the same ``seed`` samples the same cohorts and
 batches as the JAX runtime; that seed also seeds Sophia's Hutchinson
-probes.
-Population, pipeline and async modes are not ported.
+probes.  ``runtime="async"`` selects the buffered-asynchronous runtime
+(``fed.async_runtime``); population and pipeline modes are not ported.
+
+A round is traced as a ``staging`` and an ``update`` span, an ``eval``
+span and one ``round`` event carrying the round's ``Telemetry`` when
+sinks are attached (``repro_torch.obs.attach``); the update span then
+waits for the device, so an untraced round keeps its timing.
 """
 from __future__ import annotations
 
@@ -39,10 +44,11 @@ from repro_torch.core.transport import (
 )
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.staging import stage_cohort_batches
-from repro_torch.utils.hw import resolve_device
+from repro_torch.obs.telemetry import telemetry_dict
+from repro_torch.utils.hw import resolve_device, synchronize
 from repro_torch.utils.tree import tree_map
 
-RUNTIMES = ("sync",)
+RUNTIMES = ("sync", "async")
 
 
 @dataclasses.dataclass
@@ -77,8 +83,7 @@ class FedConfig:
                 f"participation must be in (0, 1], got {self.participation}")
         if self.runtime not in RUNTIMES:
             raise ValueError(
-                f"unknown or unported runtime {self.runtime!r} (want one of "
-                f"{RUNTIMES})")
+                f"unknown runtime {self.runtime!r} (want one of {RUNTIMES})")
         self.executor_config()
         if self.n_clients < 1:
             raise ValueError(f"n_clients must be >= 1, got {self.n_clients}")
@@ -179,20 +184,34 @@ class FederatedExperiment(FedExperiment):
         return self.rng.choice(self.fed.n_clients, size=s, replace=False)
 
     def run_round(self):
-        cohort = self._sample_cohort()
-        batches = stage_cohort_batches(self.client_batch_fn, cohort,
-                                       self.fed.local_steps, self.rng,
-                                       self.device)
-        # the reference draws its round key here: the same integer seeds
-        # this round's Hutchinson probes and keeps later draws in step
-        seed = int(self.rng.integers(0, 2**31))
-        self.server, self.client_state, metrics = self.round_fn(
-            self.server, self.client_state, cohort, batches, seed)
+        t = self.tracer
+        rnum = self.server.round + 1   # the round this update produces
+        with t.span("staging", round=rnum):
+            cohort = self._sample_cohort()
+            batches = stage_cohort_batches(self.client_batch_fn, cohort,
+                                           self.fed.local_steps, self.rng,
+                                           self.device)
+            # the reference draws its round key here: the same integer
+            # seeds this round's Hutchinson probes and keeps later draws
+            # in step
+            seed = int(self.rng.integers(0, 2**31))
+        with t.span("update", round=rnum):
+            self.server, self.client_state, metrics = self.round_fn(
+                self.server, self.client_state, cohort, batches, seed)
+            if t.enabled:
+                synchronize(self.device)
+        tele = metrics.pop("telemetry", None)
+        self.last_telemetry = tele
         rec = {k: float(v) for k, v in metrics.items()}
         rec["round"] = self.server.round
         if self.eval_fn is not None:
-            rec.update({k: float(v) for k, v in
-                        self.eval_fn(self.server.params).items()})
+            with t.span("eval", round=rnum):
+                rec.update({k: float(v) for k, v in
+                            self.eval_fn(self.server.params).items()})
+        if t.enabled:
+            t.round_event(rec["round"], rec,
+                          telemetry=telemetry_dict(tele) if tele is not None
+                          else None)
         self.history.append(rec)
         return rec
 

@@ -22,3 +22,11 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} (want cuda or "
                          "cpu)")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): a span that
+    times device work ends here, and only when someone is tracing."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

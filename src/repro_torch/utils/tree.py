@@ -95,3 +95,9 @@ def client_weighted_sum(tree, weights):
 
 def tree_norm_sq(tree):
     return sum(torch.sum(x * x) for x in tree_leaves(tree))
+
+
+def tree_dot(a, b):
+    """sum over corresponding leaves of <a, b> (the reference's ``vdot``)."""
+    return sum(torch.sum(x * y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))

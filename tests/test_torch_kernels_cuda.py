@@ -33,6 +33,14 @@ Tolerances:
     absolute + 1e-4 relative on directions (the Newton–Schulz output
     above, scaled by sqrt(rows/cols) <= 2) and 1e-5 max(1, |x|) on the
     moments (elementwise).
+  * the async flush of one-client qblock messages with staleness weights,
+    on the card against the same flush on the CPU: the staleness
+    histogram exact, every other output within 1e-5 max(1, |x|) — the
+    flush differs only in dequant_accumulate's sum order, 4 B u
+    sum|w s q| <= 4 * 5 * 2^-24 * 5 = 6e-6 for B = 5 inputs in [-1, 1],
+    and the drift's plain reductions.
+  * ``obs.profile_kernels``: a "ref" and a "kernel" row per triad, and
+    each kernel output within its own bound above of the plain output.
 """
 import os
 import pathlib
@@ -590,3 +598,91 @@ def test_port_imports_no_jax(cuda):
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=300, env={**os.environ, "PYTHONPATH": str(root / "src")})
     assert proc.returncode == 0, proc.stderr
+
+
+def test_async_flush_with_staleness_weights_matches_plain(cuda):
+    """FedBuff's flush of five one-client qblock messages joined along the
+    client axis, poly staleness weights w < 1 into ``dequant_accumulate``,
+    against the same flush of the same messages on the CPU."""
+    from repro_torch.core import transport as T
+    from repro_torch.core.engine import make_controller
+    from repro_torch.fed.async_runtime import (
+        make_async_aggregate_fn, make_staleness_weight,
+    )
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    gen = torch.Generator().manual_seed(7)
+    shapes = [(192, 576), (192,), (3, 3, 3, 8), (1001,)]
+
+    def tree(lead):
+        return {str(i): torch.rand((*lead, *s), generator=gen) * 2 - 1
+                for i, s in enumerate(shapes)}
+
+    params, theta, g = tree(()), tree_map(torch.abs, tree(())), tree(())
+    deltas, thetas = tree((5,)), tree_map(torch.abs, tree((5,)))
+    stale = [0, 1, 2, 3, 1]
+    weight = make_staleness_weight("poly", alpha=0.5)
+    w = torch.tensor([weight(s) for s in stale])
+    tr = T.Transport(delta=T.QBlock(), theta=T.QBlock())
+
+    def run(dev):
+        def msgs(codec, x):
+            return T.concat_clients([codec.encode(tree_map(
+                lambda t: t[i:i + 1].to(dev), x)) for i in range(5)])
+
+        flush = make_async_aggregate_fn(lr=0.02, local_steps=10,
+                                        transport=tr, telemetry=True)
+        before = dequant_accumulate.launches
+        out = flush(*[tree_map(lambda t: t.to(dev), x)
+                      for x in (params, theta, g)],
+                    make_controller("auto", device=dev),
+                    msgs(tr.delta, deltas), msgs(tr.theta, thetas),
+                    w.to(dev), torch.tensor(stale, device=dev))
+        return out, dequant_accumulate.launches - before
+
+    (gp, gt, gg, gc, gm), launches = run(cuda)
+    (wp, wt, wg, wc, wm), _ = run(torch.device("cpu"))
+    assert launches == 3        # the delta, Theta's mean and its drift
+    got = tree_leaves((gp, gt, gg)) + [gc.beta, gc.drift_ema, gm["drift"],
+                                       gm["norm_drift"], gm["freshness"]]
+    want = tree_leaves((wp, wt, wg)) + [wc.beta, wc.drift_ema, wm["drift"],
+                                        wm["norm_drift"], wm["freshness"]]
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        err = (a.cpu() - b).abs()
+        assert bool((err <= 1e-5 * b.abs().clamp(min=1.0)).all())
+    ta, tb = gm["telemetry"], wm["telemetry"]
+    assert ta.staleness_hist.tolist() == tb.staleness_hist.tolist() == [
+        1, 2, 1, 1, 0, 0, 0, 0]
+    for f in ("freshness", "update_corr_cos", "client_geom_dist"):
+        a, b = getattr(ta, f).cpu(), getattr(tb, f)
+        assert bool(((a - b).abs() <= 1e-5 * b.abs().clamp(min=1.0)).all())
+
+
+def test_profile_kernels_on_the_card(cuda):
+    """Both rows of every triad, timed on the card; each kernel output
+    within its bound of the plain output on the same inputs."""
+    from repro_torch.obs import profile_kernels
+    from repro_torch.obs.profiling import KERNELS, kernel_cases
+    shape = (256, 256)
+    recs = profile_kernels(shapes=(shape,), iters=2)
+    assert [(r["kernel"], r["impl"]) for r in recs] == [
+        (k, i) for k in KERNELS for i in ("ref", "kernel")]
+    assert all(r["backend"] == "cuda" and r["us_per_call"] > 0
+               for r in recs)
+    for name, fns, args, _, _ in kernel_cases(shape, device=cuda):
+        ref, ker = fns["ref"](*args), fns["kernel"](*args)
+        if name == "soap_rotate":
+            for k, r in zip(ker, ref):
+                assert bool(((k - r).abs() <= 1e-4 * r.abs().clamp(
+                    min=1.0)).all())
+        elif name in ("qblock", "sophia_update"):
+            for k, r in zip(ker, ref):
+                assert torch.equal(k, r)
+        elif name == "ns_ortho":
+            assert float((ker - ref).abs().max()) <= 1e-4
+        else:
+            q, scale, w = args
+            mag = ((w[:, None] * scale).repeat_interleave(128, dim=1).abs()
+                   * q.float().abs()).sum(0)
+            assert bool(((ker - ref).abs()
+                         <= 4 * q.shape[0] * U * mag).all())

@@ -1,13 +1,17 @@
-"""Profile one sync round of the PyTorch port on the GPU.
+"""Profile one round of the PyTorch port on the GPU.
 
     python3 tools/profile_torch_round.py [--algorithm NAME] [--qblock]
-                                         [--eig-method qr|ns] [--out DIR]
+                                         [--eig-method qr|ns]
+                                         [--runtime sync|async] [--out DIR]
 
 Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
 0.5, K=10; ``fedpac_soap`` by default, Sophia at lr 2e-2 and
 ``hessian_freq=10`` as ``chip_smoke.py`` runs it, a ``*_light`` variant
 at Table 6's rank 4; ``--qblock`` puts both uploads on the int8 wire with
-error feedback), warms up one round, then
+error feedback; ``--runtime async`` runs the buffered-async runtime as
+``chip_smoke.py`` does, 5 buffered of 10 in flight, where a round is one
+flush and the dispatches it waits for, and also prints the flush's
+dispatches), warms up one round, then
 traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
@@ -60,6 +64,7 @@ def main():
                     help="qblock codec on both uploads, error feedback on")
     ap.add_argument("--eig-method", choices=("qr", "ns"), default=None,
                     help="SOAP's eigenbasis refresh (default: SOAP's, qr)")
+    ap.add_argument("--runtime", choices=("sync", "async"), default="sync")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -68,7 +73,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     from chip_smoke import (
-        LIGHT_RANK, QBLOCK, SOPHIA_LR, card_line, vit_tiny_spec,
+        ASYNC_SEED, LIGHT_RANK, QBLOCK, SOPHIA_LR, async_config, card_line,
+        vit_tiny_spec,
     )
     from repro_torch.api import build_experiment, materialize, resolve
     from torch.profiler import ProfilerActivity, profile
@@ -83,15 +89,19 @@ def main():
         kw.update(lr=SOPHIA_LR, hessian_freq=10)
     if args.algorithm.endswith("_light"):
         kw.update(svd_rank=LIGHT_RANK)
+    if args.runtime == "async":
+        kw.update(seed=ASYNC_SEED, async_cfg=async_config())
     opt_kwargs = ({} if args.eig_method is None
                   else {"eig_method": args.eig_method})
     exp = build_experiment(args.algorithm, scenario=scn, participation=0.5,
                            rounds=3, opt_kwargs=opt_kwargs, **kw)
-    print(f"{args.algorithm} {kw} {opt_kwargs}")
+    print(f"{args.algorithm} {args.runtime} {kw} {opt_kwargs}")
     exp.run_round()                      # warm-up: compiles, allocator
     t0 = time.perf_counter()
     exp.run_round()
     plain_wall = time.perf_counter() - t0
+    sched = getattr(exp, "scheduler", None)    # the async runtime's
+    d0 = sched._seq if sched is not None else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -114,6 +124,9 @@ def main():
           f"{plain_wall:.3f} s untraced; CUDA kernel time {total_ms:.1f} ms; "
           f"device busy {100 * total_ms / 1e3 / wall:.1f}% of the traced "
           f"wall time")
+    if sched is not None:
+        print(f"  the traced flush waited for {sched._seq - d0} "
+              f"dispatches (one client each)")
     grouped = collections.Counter()
     members = collections.defaultdict(list)
     for name, us in kernel_us.most_common():
