@@ -150,6 +150,41 @@ TELEMETRY_REL = {"drift": 0.05, "norm_drift": 0.05,
 TELEMETRY_ABS = {"update_corr_cos": 0.05, "beta": 1e-6, "beta_next": 1e-6,
                  "drift_ema": 1e-6, "freshness": 1e-6}
 PROFILE_SHAPES = ((256, 256), (768, 768))
+# the population layer (fed.population, fed.pipeline): a 10^6-id
+# stream_dirichlet population, as benchmarks/pipeline_bench.py draws it,
+# and the state budget at 1.5x the cohort, as it sets it
+POP_SIZE = 1_000_000
+POP_PARTITION = dict(kind="stream_dirichlet", alpha=0.3,
+                     samples_per_client=32)
+# ViT-Tiny fedpac_sophia on the qblock wire with error feedback: 4 chunks
+# of 4 clients; the EF residual is 21.5 MB a client, so about 0.5 GB stays
+# resident and rounds 2-3 spill
+POP_VIT = dict(population_size=POP_SIZE, cohort_size=16, pipeline_chunk=4,
+               pipeline_workers=4, state_budget=24, local_steps=5,
+               rounds=3, lr=SOPHIA_LR, hessian_freq=10, **QBLOCK)
+# the restore path: 16 of 32 ids a round over 20 slots, so re-draws both
+# spill and restore
+POP_RESTORE = dict(population_size=32, cohort_size=16, state_budget=20,
+                   local_steps=2, rounds=3, lr=SOPHIA_LR, hessian_freq=10,
+                   **QBLOCK)
+# the reference benchmark's SCAFFOLD cell (benchmarks/pipeline_bench.py)
+POP_CNN = dict(population_size=POP_SIZE, cohort_size=64, state_budget=96,
+               local_steps=2, rounds=3)
+POP_CNN_SOURCE = dict(model="cnn", n=600, image_size=8, n_classes=4,
+                      batch=8)
+POP_CNN_CHUNK = 16
+ASYNC_POP = 10_000
+# 4 residual slots (the cohort_size that population mode wants the budget
+# to cover) for the 10 clients in flight: dispatches spill and restore
+ASYNC_POP_BUDGET = 4
+# the pipelined ViT-Tiny round against the serial one: the same clients,
+# batches and probe seeds; the chunks' vmap over 4 clients instead of 16
+# may pick other GEMM algorithms on the card, a roundoff-level change of a
+# delta can move an int8 code by one quantum, and the fold sums in chunk
+# order.  The drift is the decomposition mean||T_i||^2 - ||mean T_i||^2 on
+# both sides (the Theta wire is lossy), so a chunked sum changes it by
+# roundoff of the two terms: Sophia's GPU-vs-CPU limits hold it
+POP_TOL, POP_REL_TOL = SOPHIA_TOL, SOPHIA_REL_TOL
 
 
 def log(*a):
@@ -1038,7 +1073,8 @@ def metrics_on_card(exp):
     return exp
 
 
-def compare_histories(label, want, got, tol, rel_tol):
+def compare_histories(label, want, got, tol, rel_tol,
+                      what="GPU history agrees with the CPU plain path"):
     for r, (w, g) in enumerate(zip(want, got)):
         for k, t in tol.items():
             if abs(w[k] - g[k]) > t:
@@ -1048,7 +1084,7 @@ def compare_histories(label, want, got, tol, rel_tol):
             if abs(w[k] - g[k]) > t * abs(w[k]):
                 raise AssertionError(f"{label} GPU vs CPU round {r + 1} {k}: "
                                      f"{g[k]} vs {w[k]} (rel tol {t})")
-    log(f"{label}: GPU history agrees with the CPU plain path")
+    log(f"{label}: {what}")
 
 
 def with_host_probes(exp):
@@ -1557,6 +1593,319 @@ def async_paths(total):
         "tolerances of the CPU path")
 
 
+# ------------------------------------------------------- population paths
+
+def pop_scenario(spec, n_ids, device):
+    from repro_torch.api import PartitionSpec, materialize
+    return materialize(
+        dataclasses.replace(spec, partition=PartitionSpec(**POP_PARTITION),
+                            name=f"{spec.name}_pop"),
+        seed=0, n_clients=n_ids, device=device)
+
+
+def check_dequant_carry(vit_shapes, dev, gen):
+    """``dequant_accumulate_group`` with a carry on ViT-Tiny's 127 leaves
+    from a chunk of 4 clients at w < 1, one carry holding a NaN: one
+    launch, bitwise equal to its plain version (``carry + sum``); timed
+    with the carry, without it and as the carry-then-add it replaces."""
+    from repro_torch.kernels.fused_agg.kernel import (
+        dequant_accumulate, dequant_accumulate_group,
+        dequant_accumulate_group_plain,
+    )
+    from repro_torch.kernels.qblock.kernel import quantize
+    s = POP_VIT["pipeline_chunk"]
+    coded = [quantize(torch.randn((s, math.prod(shape)), generator=gen,
+                                  device=dev) * 1e-3)
+             for shape in vit_shapes]
+    qs, ss = (list(x) for x in zip(*coded))
+    w = torch.rand(s, generator=gen, device=dev) * 0.8 + 0.1
+    carry = [torch.randn(q.shape[1], generator=gen, device=dev) * 1e-2
+             for q in qs]
+    carry[0][5] = float("nan")
+    before = (dequant_accumulate.launches, dequant_accumulate.carry_launches)
+    got = dequant_accumulate_group(qs, ss, w, carry=carry)
+    torch.cuda.synchronize()
+    after = (dequant_accumulate.launches, dequant_accumulate.carry_launches)
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        raise AssertionError(f"dequant_accumulate with a carry over "
+                             f"{len(qs)} leaves: {after[0] - before[0]} "
+                             "launches, want 1 carrying")
+    want = dequant_accumulate_group_plain(qs, ss, w, carry=carry)
+    bad = sum(bits_differ(g, x) for g, x in zip(got, want))
+    plain = dequant_accumulate_group(qs, ss, w)
+    bad += sum(bits_differ(g, c + p) for g, c, p in zip(got, carry, plain))
+    bad += sum(bits_differ(p, x) for p, x in zip(
+        plain, dequant_accumulate_group_plain(qs, ss, w)))
+    if bad or not bool(torch.isnan(got[0][5])):
+        raise AssertionError(f"dequant_accumulate carry: {bad} values "
+                             "differ from the plain version")
+    n = sum(q.numel() for q in qs)
+    out = {}
+    for key, fn in (
+            ("carry", lambda: dequant_accumulate_group(qs, ss, w,
+                                                       carry=carry)),
+            ("no_carry", lambda: dequant_accumulate_group(qs, ss, w)),
+            ("carry_then_add", lambda: [c + o for c, o in zip(
+                carry, dequant_accumulate_group(qs, ss, w))])):
+        out[f"{key}_ms"] = timed(fn)
+        out[f"{key}_device_ms"] = device_ms(fn)
+    log(f"dequant_accumulate with a carry ({len(qs)} ViT-Tiny leaves, "
+        f"S={s}, {n / 1e6:.2f} M int8 values, w < 1, NaN in a carry): one "
+        f"launch, bitwise equal to the plain carry + sum; "
+        f"{out['carry_ms']:.3f} ms ({out['carry_device_ms']:.3f} ms device)"
+        f" with the carry, {out['no_carry_ms']:.3f} ms "
+        f"({out['no_carry_device_ms']:.3f}) without, "
+        f"{out['carry_then_add_ms']:.3f} ms "
+        f"({out['carry_then_add_device_ms']:.3f}) as launch-then-add "
+        f"({len(qs)} adds)")
+    return out
+
+
+def pipeline_checks(label, exp):
+    """Wraps ``exp``'s pipeline so that it fails if a chunk's body makes
+    the host wait for the card (sync debug mode "error" around it), or if
+    a round's metrics are not all tensors on the card."""
+    pipe = exp.pipeline
+    chunk, finish = pipe._chunk, pipe._finish
+
+    def strict_chunk(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return chunk(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def on_card(*args):
+        out = finish(*args)
+        off = {k: str(getattr(v, "device", "host"))
+               for k, v in out[4].items()
+               if not (isinstance(v, torch.Tensor)
+                       and v.device.type == "cuda")}
+        if off:
+            raise AssertionError(f"{label}: round metrics off the card "
+                                 f"{off}")
+        return out
+
+    pipe._chunk, pipe._finish = strict_chunk, on_card
+    return exp
+
+
+def same_runs(label, a, b, keys=("loss", "drift", "norm_drift",
+                                 "upload_bytes")):
+    """Histories equal on ``keys`` and server params and Theta bitwise."""
+    from repro_torch.utils.tree import tree_leaves
+    (ea, ha), (eb, hb) = a, b
+    for r, (x, y) in enumerate(zip(ha, hb)):
+        for k in keys:
+            if x[k] != y[k]:
+                raise AssertionError(f"{label} round {r + 1} {k}: "
+                                     f"{y[k]} vs {x[k]}")
+    bad = sum(bits_differ(q, p) for name in ("params", "theta")
+              for p, q in zip(tree_leaves(getattr(ea.server, name)),
+                              tree_leaves(getattr(eb.server, name))))
+    if bad:
+        raise AssertionError(f"{label}: {bad} server values differ")
+    log(f"{label}: bitwise equal ({', '.join(keys)}, params, Theta)")
+
+
+def population_paths(total, vit_shapes):
+    """The population layer on the card: the ViT-Tiny pipelined round at
+    10^6 ids against its serial and single-chunk forms, the ViT-Tiny
+    restore path (sparse vs dense store, serial and pipelined), the
+    reference benchmark's CNN SCAFFOLD cell against the CPU path and the
+    chunked/sharded executors against vmap, and the CNN async runtime in
+    population mode.  Adds each kernel's launches to ``total``."""
+    import tempfile
+
+    from repro_torch.api import build_experiment, resolve_scenario
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.fused_agg.kernel import dequant_accumulate
+    from repro_torch.scenarios import cifar_like
+    wire_k = ("sophia_update", "quantize", "dequant_accumulate")
+    spill = tempfile.TemporaryDirectory()
+
+    def spill_dir(name):
+        return os.path.join(spill.name, name)
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    # ViT-Tiny, pipelined, full width
+    vit = pop_scenario(vit_tiny_spec(), POP_SIZE, "cuda")
+    runs = {}
+    for name, kw in (("pipelined", dict(pipeline=True)),
+                     ("serial", {}),
+                     ("single-chunk", dict(
+                         pipeline=True,
+                         pipeline_chunk=POP_VIT["cohort_size"]))):
+        label = f"vit_tiny population fedpac_sophia qblock+ef {name}"
+        exp = build_experiment("fedpac_sophia", scenario=vit,
+                               **{**POP_VIT, **kw},
+                               spill_dir=spill_dir(name))
+        if exp.pipeline is not None:
+            pipeline_checks(label, exp)
+        else:
+            metrics_on_card(exp)
+        dequant_accumulate.carry_launches = 0
+        hist, launches = run_experiment(label, exp, wire_k)
+        carried = dequant_accumulate.carry_launches
+        add(launches)
+        check_wire_bytes(label, exp, hist)
+        if hist[-1]["state_peak"] > POP_VIT["state_budget"] or \
+                not hist[-1]["state_spills"]:
+            raise AssertionError(f"{label}: state_peak "
+                                 f"{hist[-1]['state_peak']}, spills "
+                                 f"{hist[-1]['state_spills']}")
+        chunks = (POP_VIT["cohort_size"] // exp.pipeline.chunk
+                  if exp.pipeline is not None else 1)
+        rounds, k = POP_VIT["rounds"], POP_VIT["local_steps"]
+        # a chunk: one sophia_update a local step; the delta and Theta
+        # encodes; the delta flush and Theta's two, every chunk after the
+        # first folding the running sums in the same launch
+        for kname, want, got in (
+                ("sophia_update", k * chunks * rounds,
+                 launches["sophia_update"]),
+                ("quantize", 2 * chunks * rounds, launches["quantize"]),
+                ("dequant_accumulate", 3 * chunks * rounds,
+                 launches["dequant_accumulate"]),
+                ("dequant_accumulate with a carry",
+                 3 * (chunks - 1) * rounds, carried)):
+            if got != want:
+                raise AssertionError(f"{label}: {got} {kname} launches, "
+                                     f"want {want} ({chunks} chunks)")
+        bubble = [r.get("pipeline_bubble") for r in hist]
+        log(f"{label}: {chunks} chunks a round, {launches['sophia_update']}"
+            f" sophia_update, {launches['quantize']} quantize, "
+            f"{launches['dequant_accumulate']} dequant_accumulate "
+            f"({carried} with a carry); pipeline_bubble {bubble}; state "
+            f"peak {hist[-1]['state_peak']}, {hist[-1]['state_spills']} "
+            "spills")
+        runs[name] = (exp, hist)
+    compare_histories("vit_tiny population pipelined vs serial",
+                      runs["serial"][1], runs["pipelined"][1], POP_TOL,
+                      POP_REL_TOL, what="within Sophia's limits " + json.dumps(
+                          {k: max(abs(w[k] - g[k]) for w, g in zip(
+                              runs["serial"][1], runs["pipelined"][1]))
+                           for k in ("loss", "drift", "norm_drift")}))
+    same_runs("vit_tiny population single-chunk pipelined vs serial",
+              runs["serial"], runs["single-chunk"])
+    del runs, exp, vit
+
+    # ViT-Tiny restore path: sparse vs dense store, serial and pipelined
+    vit = pop_scenario(vit_tiny_spec(), POP_RESTORE["population_size"],
+                       "cuda")
+    for mode, kw in (("serial", {}),
+                     ("pipelined", dict(pipeline=True, pipeline_chunk=4))):
+        pair = []
+        for store, budget in (("sparse", POP_RESTORE["state_budget"]),
+                              ("dense", POP_RESTORE["population_size"])):
+            label = f"vit_tiny restore path {mode} {store} store"
+            exp = build_experiment(
+                "fedpac_sophia", scenario=vit,
+                **{**POP_RESTORE, **kw, "state_budget": budget},
+                spill_dir=spill_dir(f"restore_{mode}_{store}"))
+            hist, launches = run_experiment(label, exp, wire_k)
+            add(launches)
+            pair.append((exp, hist))
+        if not pair[0][1][-1]["state_restores"] or \
+                pair[1][1][-1]["state_spills"]:
+            raise AssertionError(f"vit_tiny restore path {mode}: "
+                                 f"{pair[0][1][-1]['state_restores']} "
+                                 "restores on the sparse store")
+        log(f"vit_tiny restore path {mode}: sparse store "
+            f"{pair[0][1][-1]['state_spills']} spills, "
+            f"{pair[0][1][-1]['state_restores']} restores")
+        same_runs(f"vit_tiny restore path {mode}: sparse vs dense store",
+                  *pair)
+    del pair, exp, vit
+
+    # the reference benchmark's CNN SCAFFOLD cell, pipelined, against the
+    # CPU path; the chunked and sharded executors against vmap
+    cnn_spec = cifar_like(**POP_CNN_SOURCE, name="pipe_pop")
+    cnn = pop_scenario(cnn_spec, POP_SIZE, "cuda")
+    cnn_cpu = dataclasses.replace(
+        pop_scenario(cnn_spec, POP_SIZE, "cpu"),
+        params=params_from_numpy(params_to_numpy(cnn.params), "cpu"))
+    label = "pipe_pop cnn population scaffold pipelined"
+    kw = dict(POP_CNN, pipeline=True, pipeline_chunk=POP_CNN_CHUNK)
+    exp = pipeline_checks(label, build_experiment(
+        "scaffold", scenario=cnn, **kw, spill_dir=spill_dir("cnn")))
+    gpu, launches = run_experiment(label, exp)
+    add(launches)
+    if gpu[-1]["state_peak"] > POP_CNN["state_budget"] or \
+            not gpu[-1]["state_spills"]:
+        raise AssertionError(f"{label}: state_peak {gpu[-1]['state_peak']}"
+                             f", spills {gpu[-1]['state_spills']}")
+    check_wire_bytes(label, exp, gpu)
+    ref, _ = run_experiment(f"{label} (cpu reference)", build_experiment(
+        "scaffold", scenario=cnn_cpu, device="cpu", **kw,
+        spill_dir=spill_dir("cnn_cpu")))
+    compare_histories(label, ref, gpu, FIRST_ORDER_TOL, FIRST_ORDER_REL_TOL)
+    execs = {}
+    for backend in ("vmap", "chunked", "sharded"):
+        label = f"pipe_pop cnn population scaffold serial {backend}"
+        exp = metrics_on_card(build_experiment(
+            "scaffold", scenario=cnn, **POP_CNN, executor=backend,
+            chunk_size=POP_CNN_CHUNK, spill_dir=spill_dir(backend)))
+        execs[backend], launches = run_experiment(label, exp)
+        add(launches)
+    for backend in ("chunked", "sharded"):
+        # the backends differ in the batch of each cuDNN call: held at
+        # the GPU-vs-CPU tolerances
+        compare_histories(f"pipe_pop scaffold {backend} vs vmap",
+                          execs["vmap"], execs[backend], FIRST_ORDER_TOL,
+                          FIRST_ORDER_REL_TOL, what="within the first-order "
+                          "limits, max |loss gap| " + str(max(
+                              abs(w["loss"] - g["loss"]) for w, g in zip(
+                                  execs["vmap"], execs[backend]))))
+    del exp, cnn, cnn_cpu
+
+    # the async runtime in population mode: the EF residuals in the
+    # sparse store (4 slots for 10 clients in flight) against the dense
+    # one, bitwise; the scheduler's ids are global
+    acnn = pop_scenario(resolve_scenario("cifar_like_cnn"), ASYNC_POP,
+                        "cuda")
+    pair = []
+    for store, budget in (("sparse", ASYNC_POP_BUDGET),
+                          ("dense", ASYNC_POP)):
+        label = f"cifar_like_cnn async population fedpac_soap {store} store"
+        exp = build_experiment(
+            "fedpac_soap", scenario=acnn, rounds=ASYNC_FLUSHES,
+            local_steps=ASYNC_K, seed=ASYNC_SEED,
+            opt_kwargs={"eps": CNN_EPS}, delta_codec="qblock",
+            population_size=ASYNC_POP, cohort_size=ASYNC_POP_BUDGET,
+            state_budget=budget, spill_dir=spill_dir(f"async_{store}"),
+            async_cfg=async_config())
+        hist, launches, trained, _ = run_async(
+            label, exp, ("matmul_fused", "adam_moments", "quantize",
+                         "dequant_accumulate"))
+        for kname, want in (("matmul_fused", 5 * ASYNC_K * trained),
+                            ("quantize", trained),
+                            ("dequant_accumulate", ASYNC_FLUSHES)):
+            if launches[kname] != want:
+                raise AssertionError(f"{label}: {launches[kname]} {kname} "
+                                     f"launches, want {want}")
+        add(launches)
+        ids = list(exp.scheduler._dispatch_counts)
+        dense_ids = resolve_scenario("cifar_like_cnn").n_clients
+        if not all(0 <= c < ASYNC_POP for c in ids) or \
+                max(ids) < dense_ids:
+            raise AssertionError(f"{label}: dispatched ids {sorted(ids)}")
+        pair.append((exp, hist))
+    if not pair[0][1][-1]["state_spills"]:
+        raise AssertionError("async population: the sparse store never "
+                             "spilled")
+    log(f"cifar_like_cnn async population: {len(ids)} global ids up to "
+        f"{max(ids)} dispatched; sparse store "
+        f"{pair[0][1][-1]['state_spills']} spills, "
+        f"{pair[0][1][-1]['state_restores']} restores")
+    same_runs("cifar_like_cnn async population: sparse vs dense store",
+              *pair, keys=("loss", "drift", "staleness", "sim_time",
+                           "upload_bytes"))
+    spill.cleanup()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1590,6 +1939,7 @@ def main():
     errs["quantize"] = check_quantize(stacked, dev, gen)
     check_chain_quantize(dev, gen)
     errs["dequant_accumulate"] = check_dequant_accumulate(stacked, dev, gen)
+    carry_times = check_dequant_carry(vit_shapes, dev, gen)
     mats = vit_matrix_leaves(dev, gen)
     errs["newton_schulz"] = check_newton_schulz(mats)
     check_profile_kernels(dev)
@@ -1597,9 +1947,11 @@ def main():
     timings = time_kernels(dev, gen)
     timings.update(time_sophia_and_wire_kernels(vit_shapes, dev, gen))
     timings.update(time_newton_schulz(mats))
+    timings["dequant_accumulate"].update(carry_times)
     del mats
     launches = main_paths(vit_shapes, cnn_shapes)
     async_paths(launches)
+    population_paths(launches, vit_shapes)
 
     meta = {
         "adam_moments": dict(

@@ -14,6 +14,13 @@ buffered-asynchronous runtimes).
     exp = build_experiment("fedpac_soap", scenario="cifar_like_cnn",
                            async_cfg=AsyncConfig(buffer_size=5))  # async
 
+    spec = dataclasses.replace(                    # a 10^6-id population,
+        resolve_scenario("cifar_like_cnn"),        # pipelined
+        partition=PartitionSpec("stream_dirichlet", alpha=0.3))
+    exp = build_experiment("fedpac_sophia", scenario=spec,
+                           population_size=1_000_000, cohort_size=16,
+                           pipeline=True, pipeline_chunk=4)
+
 Every registered algorithm builds the same way: ``fedavg``, ``fedcm``,
 ``scaffold``, ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,
 soap,sophia}``, ``fedpm_{adamw,sophia,muon,soap}``, and the
@@ -88,8 +95,15 @@ def build_experiment(
     async_cfg: the async runtime's knobs; implies ``runtime="async"`` when
       no config and no ``runtime`` override was passed — an explicit one
       is authoritative, and a sync one with ``async_cfg`` is an error.
-    traffic, population: the continuous-traffic runtime and population
-      mode are not ported; passing either raises NotImplementedError.
+    population: optional ``fed.population.ClientPopulation`` carrying a
+      weighted or availability sampler; it must agree with the config's
+      population knobs (``population_size``/``cohort_size``).  With
+      ``population_size`` set and no object, the uniform streaming
+      population is built from the config.  In population mode a scenario
+      is materialized over the id space (``population_size`` clients):
+      use a lazy partition kind (``stream_dirichlet``) at 10^5+ ids.
+    traffic: the continuous-traffic runtime is not ported; passing it
+      raises NotImplementedError.
     """
     if traffic is not None:
         raise NotImplementedError(
@@ -117,14 +131,17 @@ def build_experiment(
 
     cfg = (FedConfig(**changes) if fed is None
            else dataclasses.replace(fed, **changes))
+    # population mode: the scenario's client axis is the abstract id space
+    id_space = (cfg.population_size if cfg.population_active
+                else cfg.n_clients)
     scn = None
     if scenario is not None:
         if premade:
-            if scenario.n_clients != cfg.n_clients:
+            if scenario.n_clients != id_space:
                 raise ValueError(
                     f"pre-materialized scenario {scenario.spec.name!r} was "
                     f"built for n_clients={scenario.n_clients} but the "
-                    f"config wants {cfg.n_clients}")
+                    f"config wants {id_space}")
             if torch.device(scenario.device) != resolve_device(cfg.device):
                 raise ValueError(
                     f"pre-materialized scenario {scenario.spec.name!r} lives "
@@ -133,7 +150,7 @@ def build_experiment(
             scn = scenario
         else:
             scn = materialize(scenario, seed=cfg.seed,
-                              n_clients=cfg.n_clients, device=cfg.device)
+                              n_clients=id_space, device=cfg.device)
         params, loss_fn, client_batch_fn, eval_fn = scn.problem()
     elif params is None or loss_fn is None or client_batch_fn is None:
         raise TypeError(
@@ -145,12 +162,9 @@ def build_experiment(
             raise ValueError(
                 "async_cfg given but the config says runtime='sync' — set "
                 "runtime='async' (or drop the async_cfg)")
-        if population is not None:
-            raise NotImplementedError(
-                "population mode is not ported (ROADMAP queue 1 item 8: "
-                "fed/population)")
         exp = FederatedExperiment(cfg, params, loss_fn, client_batch_fn,
-                                  eval_fn, opt_kwargs, spec=spec)
+                                  eval_fn, opt_kwargs, spec=spec,
+                                  population=population)
     else:
         exp = AsyncFederatedExperiment(cfg, params, loss_fn, client_batch_fn,
                                        eval_fn, opt_kwargs,

@@ -11,16 +11,22 @@ refresh gate and Sophia's curvature gate (``k % hessian_freq == 0``) are
 plain ``if``s on the shared step index.
 
 Sophia's curvature comes from ``hutchinson_estimate`` under the same
-executor.  Its Rademacher probes come from a ``torch.Generator`` on the
-run's device, seeded from the round's ``seed``; they cannot be the
-reference's ``jax.random`` bits, so ``probe_fn`` lets a caller inject
-probes (the parity tests rebuild the reference's own).
+executor.  Its Rademacher probes come from ``torch.Generator``s on the
+run's device (``probe_generators``): on the legacy path one generator,
+seeded from the round's integer ``seed``, draws for the stacked cohort;
+in population mode ``seed`` holds one seed per client (its population
+seed and the round's salt) and each client draws from a generator of its
+own, so its probes do not depend on its chunk or its position in the
+cohort.  They cannot be the reference's ``jax.random`` bits, so
+``probe_fn`` lets a caller inject probes (the parity tests rebuild the
+reference's own).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.optim.api import LocalOptimizer
@@ -71,6 +77,29 @@ def rademacher_like(tree, gen: torch.Generator):
     return tree_map_with_path(lambda path, _: draws[path], tree)
 
 
+def probe_generators(seed, clients: int, device):
+    """Sophia's probe source: one generator for the stacked cohort from an
+    integer ``seed`` (the legacy round's draw), or one generator per
+    client from a sequence of ``clients`` per-client seeds."""
+    if isinstance(seed, (int, np.integer)):
+        return torch.Generator(device=device).manual_seed(int(seed))
+    seeds = [int(v) for v in np.asarray(seed).ravel()]
+    if len(seeds) != clients:
+        raise ValueError(f"{len(seeds)} per-client probe seeds for a cohort "
+                         f"of {clients}")
+    return [torch.Generator(device=device).manual_seed(v) for v in seeds]
+
+
+def draw_probes(x, gens):
+    """Stacked ±1 probes shaped like the stacked ``x``: from one generator
+    over the whole stack, or row by row from one generator a client."""
+    if isinstance(gens, torch.Generator):
+        return rademacher_like(x, gens)
+    row = tree_map(lambda leaf: leaf[0], x)
+    rows = [rademacher_like(row, g) for g in gens]
+    return tree_map(lambda *r: torch.stack(r), *rows)
+
+
 def client_round(
     loss_fn: Callable,
     opt: LocalOptimizer,
@@ -82,7 +111,8 @@ def client_round(
     cohort_exec: Callable,
     beta,             # correction strength (Eq. 9); 0 => no correction
     *,
-    seed: int = 0,    # the round's draw: seeds the Hutchinson probes
+    seed=0,           # the round's draw, or (S,) per-client seeds: seeds
+    #                   the Hutchinson probes (``probe_generators``)
     probe_fn: Optional[Callable] = None,
 ):
     """The cohort's round.  Returns (stacked delta_x, stacked theta_final,
@@ -98,10 +128,9 @@ def client_round(
     opt_state = opt.init(x, lead=1)
     if run.align and theta is not None:
         opt_state = opt.set_precond(opt_state, theta)
-    gen = None
+    gens = None
     if opt.needs_hessian and probe_fn is None:
-        dev = next(iter(batches.values())).device
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        gens = probe_generators(seed, s, next(iter(batches.values())).device)
 
     def loss_and_grad(params, batch):
         return torch.func.grad_and_value(loss_fn)(params, batch)
@@ -115,8 +144,7 @@ def client_round(
         grads, loss = cohort_exec(loss_and_grad, x, batch)
         extras = None
         if opt.needs_hessian and k % run.hessian_freq == 0:
-            u = probe_fn(k) if probe_fn is not None else rademacher_like(
-                x, gen)
+            u = probe_fn(k) if probe_fn is not None else draw_probes(x, gens)
             extras = {"h_est": cohort_exec(hvp, x, batch, u)}
         direction, opt_state = opt.update(grads, opt_state, x, k, lead=1,
                                           extras=extras)

@@ -2,7 +2,7 @@
 (counterpart of ``repro/core/engine``)."""
 from repro_torch.core.engine.aggregation import (  # noqa: F401
     AggregationConfig, advance_server, aggregate, aggregate_wire,
-    precond_mixing_weights,
+    finish_stream, precond_mixing_weights, stream_chunk,
 )
 from repro_torch.core.engine.executors import (  # noqa: F401
     BACKENDS, ExecutorConfig, make_cohort_executor,

@@ -8,8 +8,9 @@
           Theta' = (1 - rho) Theta + rho Theta_B   (only when cfg.align)
 
 rho is 1 for a synchronous round.  ``precond_mixing_weights`` is FedPM's
-curvature-weighted mixing hook.  The streamed (pipeline) forms are not
-ported yet.
+curvature-weighted mixing hook.  ``stream_chunk``/``finish_stream`` are
+the streamed forms the chunk pipeline (``fed.pipeline``) folds a cohort
+with, chunk by chunk.
 """
 from __future__ import annotations
 
@@ -160,6 +161,122 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
                          theta_stats)
     step = tree_map(lambda x: x / b, delta_wsum)
     return (*out, {"step": step, "thetas": thetas})
+
+
+# ------------------------------------------------- streamed aggregation
+#
+# The chunk-streaming pipeline never stacks the whole cohort: each chunk's
+# wire uploads fold into running f32 weighted sums (``stream_chunk``,
+# backed by the carry-accepting ``Codec.accumulate``) and one
+# ``finish_stream`` applies the Alg. 2 tail from the reduced statistics.
+# A single-chunk stream with ``exact=True`` runs the very expressions of
+# ``aggregate_wire`` (carry=None accumulates, the same drift), so it is
+# bitwise equal to the monolithic flush; multi-chunk streams compute the
+# drift by the decomposition mean_i ||Theta_i||^2 - ||mean_i Theta_i||^2
+# (clamped at 0), the formula ``aggregate_wire`` uses for lossy codecs.
+
+_CARRY_KEYS = ("delta_wsum", "w_sum", "theta_wsum", "theta_usum",
+               "theta_sq_sum", "theta_drift")
+
+
+def _flat_sq(thetas, b, device):
+    """(B,) per-client squared norm of a dense stacked tree (zeros for a
+    tree with no leaves)."""
+    total = torch.zeros((b,), dtype=torch.float32, device=device)
+    for x in tree_leaves(thetas):
+        total = total + torch.sum(
+            x.to(torch.float32).reshape(x.shape[0], -1) ** 2, dim=-1)
+    return total
+
+
+def stream_chunk(carry, dmsgs, weights, transport, *, tmsgs=None,
+                 thetas=None, exact: bool = False):
+    """Fold one chunk's uploads into the running aggregation carry.
+
+    ``carry`` is None for the first chunk, else the dict this function
+    returned for the previous one.  ``tmsgs``/``thetas`` mirror
+    ``aggregate_wire``: Theta uploads as stacked wire messages or as an
+    already-dense stacked tree.  ``exact=True`` is the single-chunk mode
+    (invalid with a carry): the drift comes out as ``aggregate_wire``
+    computes it, so ``finish_stream`` reproduces it bitwise.  The running
+    scalar sums are updated in place from the second chunk on."""
+    if tmsgs is not None and thetas is not None:
+        raise ValueError("pass theta uploads as tmsgs (wire) or thetas "
+                         "(dense), not both")
+    if exact and carry is not None:
+        raise ValueError("exact streaming is single-chunk only "
+                         "(carry must be None)")
+    w = weights.to(torch.float32)
+    b = w.shape[0]
+    prev = carry if carry is not None else dict.fromkeys(_CARRY_KEYS)
+    out = dict(prev)
+    out["delta_wsum"] = transport.delta.accumulate(
+        dmsgs, w, carry=prev["delta_wsum"])
+    out["w_sum"] = _acc(prev["w_sum"], torch.sum(w))
+    out["theta_drift"] = None
+    ones = torch.ones((b,), dtype=torch.float32, device=w.device)
+
+    if tmsgs is not None and not (exact and transport.theta.lossless):
+        sq = transport.theta.sq_norms(tmsgs)
+        usum = transport.theta.accumulate(tmsgs, ones,
+                                          carry=prev["theta_usum"])
+        if exact:       # aggregate_wire's lossy drift, verbatim
+            ubar_sq = tree_norm_sq(tree_map(lambda x: x / b, usum))
+            out["theta_drift"] = torch.clamp(torch.mean(sq) - ubar_sq,
+                                             min=0.0)
+        else:
+            out["theta_sq_sum"] = _acc(prev["theta_sq_sum"], torch.sum(sq))
+            out["theta_usum"] = usum
+        out["theta_wsum"] = transport.theta.accumulate(
+            tmsgs, w, carry=prev["theta_wsum"])
+    elif tmsgs is not None or thetas is not None:
+        if tmsgs is not None:
+            thetas = transport.theta.decode(tmsgs)
+        if exact:
+            out["theta_drift"] = drift_metric(thetas, w.device)
+            out["theta_wsum"] = client_weighted_sum(thetas, w)
+        else:
+            out["theta_sq_sum"] = _acc(prev["theta_sq_sum"],
+                                       torch.sum(_flat_sq(thetas, b, w.device)))
+            out["theta_usum"] = _acc_tree(prev["theta_usum"],
+                                          client_weighted_sum(thetas, ones))
+            out["theta_wsum"] = _acc_tree(prev["theta_wsum"],
+                                          client_weighted_sum(thetas, w))
+    return out
+
+
+def _acc(prev, x):
+    return x if prev is None else prev.add_(x)
+
+
+def _acc_tree(prev, tree):
+    if prev is None:
+        return tree
+    return tree_map(lambda a, c: a.add_(c), prev, tree)
+
+
+def finish_stream(params, theta, g_global, carry, cohort_size: int,
+                  cfg: AggregationConfig):
+    """Apply the Alg. 2 tail to a fully folded stream carry.
+    ``cohort_size`` is the total b (the chunks' sizes sum to it).  Returns
+    (new_params, new_theta, new_g, metrics, aux) with ``aux["step"]`` the
+    weighted delta mean."""
+    b = int(cohort_size)
+    rho = carry["w_sum"] / b
+    denom = carry["w_sum"] + 1e-12
+    if carry["theta_wsum"] is None:
+        theta_stats = None
+    elif carry["theta_drift"] is not None:       # exact single-chunk path
+        theta_stats = (carry["theta_drift"], carry["theta_wsum"])
+    else:
+        ubar_sq = tree_norm_sq(tree_map(lambda x: x / b,
+                                        carry["theta_usum"]))
+        drift = torch.clamp(carry["theta_sq_sum"] / b - ubar_sq, min=0.0)
+        theta_stats = (drift, carry["theta_wsum"])
+    out = _finish_update_stats(params, theta, g_global, carry["delta_wsum"],
+                               b, rho, denom, cfg, theta_stats)
+    step = tree_map(lambda x: x / b, carry["delta_wsum"])
+    return (*out, {"step": step})
 
 
 def advance_server(server: ServerState, params, theta, g_global, *,

@@ -12,7 +12,8 @@ grouped launch (``encode_leaf`` one leaf).  Server-side the codec never
 decodes a stacked cohort: ``accumulate`` runs the fused
 dequantize-accumulate kernel (``kernels/fused_agg``) straight into the
 weighted sums, one grouped launch for every leaf of the tree
-(``accumulate_leaf`` for one), and
+(``accumulate_leaf`` for one), a running carry folded in by the same
+launch, and
 ``sq_norms_leaf`` takes s^2 * sum(q^2) per block in plain PyTorch, as the
 reference computes it in ``jnp``.  ``decode_leaf`` (the error-feedback
 residual, a chain's outer stage, tests) is plain PyTorch, as the
@@ -73,15 +74,16 @@ class QBlock(Codec):
         return x.reshape(msg.shape).to(msg.dtype)
 
     def accumulate_leaf(self, msgs: LeafMsg, weights, carry=None):
-        out = dequant_accumulate(msgs.parts["q"], msgs.parts["scale"],
-                                 weights, block=msgs.extra)
-        out = out.reshape(msgs.shape[1:])
-        return out if carry is None else carry + out
+        out = dequant_accumulate(
+            msgs.parts["q"], msgs.parts["scale"], weights, block=msgs.extra,
+            carry=None if carry is None else carry.reshape(-1))
+        return out.reshape(msgs.shape[1:])
 
     def accumulate(self, msgs, weights, carry=None):
         """The tree of sum_i w_i * decode(msg_i): one grouped kernel call.
         A message frames every leaf with the one block it was encoded
-        with.  ``carry`` is added after the flush (``carry + out``, as the
+        with.  ``carry`` (a tree like the decode target) is added by the
+        kernel's epilogue to each finished sum (``carry + out``, as the
         reference folds it)."""
         flat = [m for _, m in tree_flatten_with_path(msgs.leaves)]
         blocks = {m.extra for m in flat}
@@ -90,10 +92,10 @@ class QBlock(Codec):
                              f"block, got {sorted(blocks)}")
         outs = dequant_accumulate_group(
             [m.parts["q"] for m in flat], [m.parts["scale"] for m in flat],
-            weights, block=blocks.pop() if blocks else self.block)
+            weights, block=blocks.pop() if blocks else self.block,
+            carry=None if carry is None else
+            [c.reshape(-1) for c in tree_leaves(carry)])
         outs = [out.reshape(m.shape[1:]) for m, out in zip(flat, outs)]
-        if carry is not None:
-            outs = [c + out for c, out in zip(tree_leaves(carry), outs)]
         return tree_unflatten(msgs.leaves, outs)
 
     def sq_norms_leaf(self, msgs: LeafMsg):

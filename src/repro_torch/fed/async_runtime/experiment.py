@@ -24,7 +24,15 @@ client's row and writes the refreshed row back in place.
 
 Algorithms with per-client persistent state (``spec.client_state``,
 SCAFFOLD) are rejected: buffered execution has no lock-step state
-exchange.  Population mode is not ported.
+exchange.
+
+Population mode (``fed.population_size`` set, or a ``population=``): the
+scheduler draws stable global ids from the abstract id space; a
+dispatch's batches come from the client's own generator and its probe
+seed from ``ClientPopulation.client_key``, both salted with the client's
+dispatch count; the error-feedback residuals live in the budgeted sparse
+store (``fed.population``), addressed by slot, and the in-flight pool
+sizes from ``cohort_size`` (or ``AsyncConfig.concurrency``).
 """
 from __future__ import annotations
 
@@ -50,6 +58,9 @@ from repro_torch.fed.async_runtime.buffer import (
 from repro_torch.fed.async_runtime.scheduler import SimScheduler
 from repro_torch.fed.async_runtime.staleness import make_staleness_weight
 from repro_torch.fed.base import FedExperiment
+from repro_torch.fed.population import (
+    make_client_store, resolve_population, stage_client_population_batches,
+)
 from repro_torch.fed.rounds import FedConfig, resolve_lr
 from repro_torch.fed.staging import stage_client_batches
 from repro_torch.obs.telemetry import telemetry_dict
@@ -67,11 +78,7 @@ class AsyncFederatedExperiment(FedExperiment):
                  spec: Optional[AlgorithmSpec] = None,
                  population: Optional[object] = None):
         super().__init__(fed)
-        if population is not None or \
-                getattr(fed, "population_size", None) is not None:
-            raise NotImplementedError(
-                "population mode is not ported (ROADMAP queue 1 item 8: "
-                "fed/population)")
+        self.population = resolve_population(fed, population)
         self.device = resolve_device(fed.device)
         self.acfg = async_cfg or AsyncConfig()
         self.loss_fn = loss_fn
@@ -90,10 +97,24 @@ class AsyncFederatedExperiment(FedExperiment):
             self.acfg.staleness_mode, self.acfg.staleness_alpha,
             self.acfg.hinge_threshold)
         self.server = init_server(params, geom=ctrl)
-        concurrency = self.acfg.resolve_concurrency(fed.n_clients,
-                                                    fed.participation)
+        if self.population is not None:
+            # participation fractions don't scale to 10^6-id spaces: the
+            # in-flight pool sizes from cohort_size (or the explicit knob)
+            concurrency = self.acfg.concurrency
+            if concurrency is None:
+                concurrency = max(self.acfg.buffer_size, fed.cohort_size)
+            concurrency = max(1, min(concurrency, self.population.size))
+            if self.acfg.buffer_size > concurrency:
+                raise ValueError(
+                    f"buffer_size={self.acfg.buffer_size} exceeds the "
+                    f"population-mode concurrency {concurrency} — raise "
+                    "AsyncConfig.concurrency or cohort_size")
+        else:
+            concurrency = self.acfg.resolve_concurrency(fed.n_clients,
+                                                        fed.participation)
         self.scheduler = SimScheduler(self.acfg.latency, fed.n_clients,
-                                      concurrency, seed=fed.seed)
+                                      concurrency, seed=fed.seed,
+                                      population=self.population)
         # batches and seeds draw from a separate stream so the simulated
         # event order is invariant to how many batch samples a client
         # consumes
@@ -134,8 +155,16 @@ class AsyncFederatedExperiment(FedExperiment):
             align=self.align, mixing=self.spec.mixing,
             transport=self.transport, wire_cell=self._wire_cell,
             telemetry=True)
-        self._ef_state = (EF_STATE.init(params, fed.n_clients) if self._ef
-                          else None)
+        # EF residuals: stacked (N, ...) on the legacy path; in population
+        # mode a budgeted sparse store whose rows a dispatch addresses by
+        # slot (cold rows spill through the checkpoint store)
+        self._ef_store = self._ef_state = None
+        if self._ef and self.population is not None:
+            self._ef_store = make_client_store(
+                EF_STATE, params, fed.population_size,
+                budget=fed.resolve_state_budget(), spill_dir=fed.spill_dir)
+        elif self._ef:
+            self._ef_state = EF_STATE.init(params, fed.n_clients)
         self._theta0 = zero_theta(self.opt, params) if self.align else None
 
     # ------------------------------------------------------------ clients
@@ -147,30 +176,46 @@ class AsyncFederatedExperiment(FedExperiment):
         a lossy codec) and, for aligned algorithms, Theta — each stacked
         with a client axis of 1, and the client's mean local loss."""
         t = self.tracer
+        pop = self.population
         with t.span("staging", client_id=cid, sim_time=self.scheduler.now):
-            batches = stage_client_batches(self.client_batch_fn, cid,
-                                           self.fed.local_steps, self.rng,
-                                           self.device)
-            seed = int(self.rng.integers(0, 2**31))
+            if pop is not None:
+                salt = self.scheduler.dispatch_salt(cid)
+                batches = stage_client_population_batches(
+                    self.client_batch_fn, pop, cid, self.fed.local_steps,
+                    self.device, salt=salt)
+                seed = pop.cohort_keys([cid], salt=salt)   # its own seed
+            else:
+                batches = stage_client_batches(
+                    self.client_batch_fn, cid, self.fed.local_steps,
+                    self.rng, self.device)
+                seed = int(self.rng.integers(0, 2**31))
         theta = self.server.theta if self.server.theta is not None \
             else self._theta0
-        ids = torch.tensor([cid], dtype=torch.long, device=self.device)
+        slot = (int(self._ef_store.acquire([cid])[0])
+                if self._ef_store is not None else cid)
+        ids = torch.tensor([slot], dtype=torch.long, device=self.device)
         probes = (None if self.probe_fn is None
                   else functools.partial(self.probe_fn, seed))
         with t.span("local_update", client_id=cid,
                     sim_time=self.scheduler.now):
             dmsg, tmsg, new_residual, loss = self._client_step(
                 self.server.params, theta, self.server.g_global,
-                self.server.geom.beta, self._ef_state, ids, batches,
+                self.server.geom.beta, self._residuals(), ids, batches,
                 seed=seed, probe_fn=probes)
             if t.enabled:
                 synchronize(self.device)
         if self._ef:
-            # the client's row, written in place (no copy of the (N, ...)
+            # the client's row, written in place (no copy of the stacked
             # residuals a dispatch)
-            EF_STATE.server_update(self._ef_state, ids, new_residual,
-                                   self.fed.n_clients)
+            EF_STATE.server_update(self._residuals(), ids, new_residual,
+                                   None)
         return {"delta": dmsg, "theta": tmsg, "loss": loss}
+
+    def _residuals(self):
+        """The stacked EF residuals (the store's slots in population
+        mode), or None without feedback."""
+        return (self._ef_store.state if self._ef_store is not None
+                else self._ef_state)
 
     # ------------------------------------------------------------ loop
 
@@ -217,9 +262,13 @@ class AsyncFederatedExperiment(FedExperiment):
         feedback."""
         if not self._ef:
             return
+        # re-acquire in population mode: the row may have been evicted
+        # (and spilled) while this result was in flight
+        slot = (int(self._ef_store.acquire([ev.client_id])[0])
+                if self._ef_store is not None else ev.client_id)
         decoded = self.transport.delta.decode(ev.payload["delta"])
-        tree_map(lambda row, d: row[ev.client_id].add_(d[0].to(row.dtype)),
-                 self._ef_state, decoded)
+        tree_map(lambda row, d: row[slot].add_(d[0].to(row.dtype)),
+                 self._residuals(), decoded)
 
     def _flush_buffer(self, buffered, stale, weights, *,
                       dropped: int = 0, discarded: int = 0) -> dict:
@@ -267,6 +316,11 @@ class AsyncFederatedExperiment(FedExperiment):
             "discarded": float(discarded),
         })
         rec["round"] = self.server.round
+        if self._ef_store is not None:
+            rec.update(state_resident=self._ef_store.resident,
+                       state_peak=self._ef_store.peak_resident,
+                       state_spills=self._ef_store.spills,
+                       state_restores=self._ef_store.restores)
         if self.eval_fn is not None:
             with t.span("eval", round=rnum, sim_time=sched.now):
                 rec.update({k: float(v) for k, v in

@@ -1,5 +1,6 @@
 // dequant_accumulate: the qblock flush, sum_i w_i * scale_{i,b} * q_{i,b},
-// over a group of leaves in one launch.
+// over a group of leaves in one launch, optionally folded into a running
+// carry (carry + sum).
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/fused_agg/kernel.py::dequant_accumulate (a (rows, B)
@@ -9,30 +10,38 @@
 // weighted sums with one launch; no decoded per-client tensor is formed.
 //
 // Inputs per leaf: q (B, n) int8, the wire's values (row stride n, no
-// padding); scale (B, nb) f32 with nb = ceil(n / block).  Shared by the
-// group: w (B,) f32, B and block.  Output per leaf: (n,) f32, the leaf's
-// sum itself (no pad, no trim copy).
+// padding); scale (B, nb) f32 with nb = ceil(n / block); optionally a
+// carry (n,) f32, the chunk pipeline's running sum of earlier chunks.
+// Shared by the group: w (B,) f32, B and block.  Output per leaf: (n,)
+// f32, the leaf's sum itself (no pad, no trim copy), or carry + sum.
 //
-// Bound on an H100: memory -- B*n int8 reads plus 4n bytes written (the
-// B*nb scales are noise), a multiply-add per byte read.
+// Bound on an H100: memory -- B*n int8 reads plus 4n bytes written (and
+// 4n read with a carry; the B*nb scales are noise), a multiply and an add
+// per byte read.
 //
 // Design: the TPU grid's sequential client axis is a loop inside the
 // thread.  A work item is ELEMS = 4 consecutive outputs of one leaf (always
 // in one quant block: block is a multiple of 4); its thread keeps their
 // sums in registers and walks the B clients innermost, one 4-byte load
 // and one multiplier w_i * scale_{i,b} (an f32 product, rounded as the
-// reference rounds it) per client, and writes each output once: no carry
-// across blocks, no atomics.  One launch covers every leaf of the tree:
-//  * a table of per-leaf records (q, scale, out, n, nb, first work item,
-//    a flag) is passed by value as the kernel's __grid_constant__
+// reference rounds it) per client, and writes each output once: no
+// atomics.  The products and sums are rounded one by one (__fmul_rn,
+// __fadd_rn: no fused multiply-add), clients in order, so the plain
+// version (kernels/fused_agg/kernel.py) repeats them bit for bit.  A leaf
+// with a carry (flag CARRY) adds it once to the finished register sums,
+// carry + sum as the reference folds a chunk, and writes that: one read
+// and one write of the running sum instead of a second elementwise pass.
+// One launch covers every leaf of the tree:
+//  * a table of per-leaf records (q, scale, out, carry, n, nb, first work
+//    item, flags) is passed by value as the kernel's __grid_constant__
 //    parameter (grouped.cuh), up to MAX_LEAVES a launch;
 //  * persistent blocks, as many as are resident on the card, walk the
 //    global work-item index; a thread finds its item's leaf by binary
 //    search over the items' starts, staged in shared memory per block;
 //  * a leaf whose rows are 4-byte aligned (q aligned, n % 4 == 0) and
-//    whose output is 16-byte aligned takes 4-byte loads and float4 stores
-//    (flag VEC, set on the host); any other takes byte loads and scalar
-//    stores with its ragged tail masked.
+//    whose output (and carry) is 16-byte aligned takes 4-byte loads and
+//    float4 loads and stores (flag VEC, set on the host); any other takes
+//    byte loads and scalar ones with its ragged tail masked.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,21 +52,22 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int ELEMS = 4;   // outputs per work item (one thread)
 
-enum : int { VEC = 1 };   // flags, set per leaf on the host
+enum : int { VEC = 1, CARRY = 2 };   // flags, set per leaf on the host
 
 struct Leaf {
   const int8_t* q;
   const float* scale;
   float* out;
+  const float* carry;   // null without the CARRY flag
   int64_t n, nb;
   int item_start;
   int flags;
 };
-static_assert(sizeof(Leaf) == 48, "Leaf layout is mirrored on the host");
+static_assert(sizeof(Leaf) == 56, "Leaf layout is mirrored on the host");
 
 constexpr int HEADER_BYTES = 32;
 constexpr int MAX_LEAVES =
-    (grouped::PARAM_LIMIT - HEADER_BYTES) / (int)sizeof(Leaf);   // 681
+    (grouped::PARAM_LIMIT - HEADER_BYTES) / (int)sizeof(Leaf);   // 584
 
 struct Group {
   int num_leaves, total_items;
@@ -78,7 +88,7 @@ __device__ __forceinline__ void accumulate(const Group& p, const Leaf& L,
   for (int j = 0; j < ELEMS; ++j) acc[j] = 0.f;
 #pragma unroll 4
   for (int i = 0; i < p.clients; ++i) {
-    const float ws = __ldg(p.w + i) * __ldg(L.scale + i * L.nb + b);
+    const float ws = __fmul_rn(__ldg(p.w + i), __ldg(L.scale + i * L.nb + b));
     const int8_t* row = L.q + i * L.n;
     int8_t v[ELEMS];
     if (VEC_) {
@@ -92,15 +102,25 @@ __device__ __forceinline__ void accumulate(const Group& p, const Leaf& L,
         v[j] = (e0 + j < L.n) ? row[e0 + j] : 0;
     }
 #pragma unroll
-    for (int j = 0; j < ELEMS; ++j) acc[j] += ws * (float)v[j];
+    for (int j = 0; j < ELEMS; ++j)
+      acc[j] = __fadd_rn(acc[j], __fmul_rn(ws, (float)v[j]));
   }
+  const bool carry = L.flags & CARRY;
   if (VEC_) {
+    if (carry) {
+      const float4 c = __ldg(reinterpret_cast<const float4*>(L.carry + e0));
+      acc[0] = __fadd_rn(c.x, acc[0]);
+      acc[1] = __fadd_rn(c.y, acc[1]);
+      acc[2] = __fadd_rn(c.z, acc[2]);
+      acc[3] = __fadd_rn(c.w, acc[3]);
+    }
     *reinterpret_cast<float4*>(L.out + e0) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
   } else {
 #pragma unroll
     for (int j = 0; j < ELEMS; ++j)
-      if (e0 + j < L.n) L.out[e0 + j] = acc[j];
+      if (e0 + j < L.n)
+        L.out[e0 + j] = carry ? __fadd_rn(L.carry[e0 + j], acc[j]) : acc[j];
   }
 }
 

@@ -2,7 +2,8 @@
 ``ScenarioSpec``/``PartitionSpec``, the registry and ``materialize``, and
 the registered vision catalog."""
 from repro_torch.scenarios.spec import (  # noqa: F401
-    DuplicateScenarioError, PARTITION_KINDS, PartitionSpec, Scenario,
+    DuplicateScenarioError, LAZY_PARTITION_KINDS, PARTITION_KINDS,
+    PartitionSpec, Scenario,
     ScenarioSpec, UnknownScenarioError,
 )
 from repro_torch.scenarios.registry import (  # noqa: F401

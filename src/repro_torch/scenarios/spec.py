@@ -4,9 +4,9 @@
 A frozen ``ScenarioSpec`` declares data source x partition x model x
 batching; ``materialize`` (``scenarios.registry``) turns it into the
 concrete ``Scenario`` bundle that ``repro_torch.api.build_experiment``
-consumes.  ``PartitionSpec`` is the heterogeneity control; the
-``dirichlet``, ``shard``, ``quantity`` and ``iid`` kinds are ported (the
-lazy ``stream_dirichlet`` kind is not).
+consumes.  ``PartitionSpec`` is the heterogeneity control: the eager
+``dirichlet``, ``shard``, ``quantity`` and ``iid`` kinds, and the lazy
+``stream_dirichlet`` kind for population-scale id spaces.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from typing import Any, Callable, Mapping, Optional, Union
 import numpy as np
 
 from repro_torch.data.partition import (
-    dirichlet_partition, iid_partition, quantity_partition, shard_partition,
+    ClientIndexMap, dirichlet_partition, iid_partition, quantity_partition,
+    shard_partition, stream_dirichlet_map,
 )
 
 
@@ -28,35 +29,54 @@ class DuplicateScenarioError(ValueError):
     """``register`` called twice for the same scenario name."""
 
 
-PARTITION_KINDS = ("dirichlet", "shard", "quantity", "iid")
+PARTITION_KINDS = ("dirichlet", "shard", "quantity", "iid",
+                   "stream_dirichlet")
+
+#: kinds whose split is derived per client on demand (``build`` returns a
+#: ``ClientIndexMap``): the only kinds usable at population scale
+LAZY_PARTITION_KINDS = ("stream_dirichlet",)
 
 
 @dataclasses.dataclass(frozen=True)
 class PartitionSpec:
     """How samples are split across clients: ``kind`` one of
     ``PARTITION_KINDS``; ``alpha`` the Dirichlet concentration for
-    ``dirichlet`` (label skew) and ``quantity`` (size skew);
-    ``shards_per_client`` drives the pathological ``shard`` split."""
+    ``dirichlet`` (label skew), ``quantity`` (size skew) and
+    ``stream_dirichlet`` (each client's label mixture);
+    ``shards_per_client`` drives the pathological ``shard`` split and
+    ``samples_per_client`` sizes a streamed client's view of the pool."""
     kind: str = "dirichlet"
     alpha: float = 0.1
     shards_per_client: int = 2
     min_size: int = 2
+    samples_per_client: int = 64
 
     def __post_init__(self):
         if self.kind not in PARTITION_KINDS:
             raise ValueError(
-                f"unknown or unported partition kind {self.kind!r} "
+                f"unknown partition kind {self.kind!r} "
                 f"(want one of {PARTITION_KINDS})")
-        if self.kind in ("dirichlet", "quantity") and self.alpha <= 0:
+        if self.kind in ("dirichlet", "quantity", "stream_dirichlet") and \
+                self.alpha <= 0:
             raise ValueError(f"alpha must be > 0, got {self.alpha}")
         if self.shards_per_client < 1:
             raise ValueError(
                 f"shards_per_client must be >= 1, got "
                 f"{self.shards_per_client}")
+        if self.samples_per_client < 1:
+            raise ValueError(
+                f"samples_per_client must be >= 1, got "
+                f"{self.samples_per_client}")
+
+    @property
+    def lazy(self) -> bool:
+        """Whether ``build`` yields a lazy map rather than an eager list."""
+        return self.kind in LAZY_PARTITION_KINDS
 
     def build(self, labels: Optional[np.ndarray], n_samples: int,
               n_clients: int, seed: int):
-        """A list of ``n_clients`` index arrays."""
+        """A list of ``n_clients`` index arrays, or for a lazy kind a
+        ``ClientIndexMap``; both index as ``parts[cid]``."""
         if self.kind == "iid":
             return iid_partition(n_samples, n_clients, seed=seed)
         if self.kind == "quantity":
@@ -69,6 +89,10 @@ class PartitionSpec:
         if self.kind == "dirichlet":
             return dirichlet_partition(labels, n_clients, self.alpha,
                                        seed=seed, min_size=self.min_size)
+        if self.kind == "stream_dirichlet":
+            return stream_dirichlet_map(
+                labels, n_clients, self.alpha,
+                samples_per_client=self.samples_per_client, seed=seed)
         return shard_partition(labels, n_clients,
                                shards_per_client=self.shards_per_client,
                                seed=seed)
@@ -81,6 +105,8 @@ class PartitionSpec:
             return f"qty{self.alpha:g}"
         if self.kind == "shard":
             return f"shard{self.shards_per_client}"
+        if self.kind == "stream_dirichlet":
+            return f"sdir{self.alpha:g}"
         return "iid"
 
 
@@ -136,7 +162,8 @@ class Scenario:
     """A materialized scenario: the concrete problem the runtime consumes.
     ``problem()`` returns ``(params, loss_fn, client_batch_fn, eval_fn)``;
     ``device`` is where params and eval data live (a required keyword:
-    no default puts a GPU run's data on the CPU)."""
+    no default puts a GPU run's data on the CPU).  ``partitions`` is a
+    list for eager kinds, a lazy ``ClientIndexMap`` for streamed ones."""
     spec: ScenarioSpec
     seed: int
     n_clients: int
@@ -145,7 +172,7 @@ class Scenario:
     client_batch_fn: Callable
     eval_fn: Optional[Callable]
     device: Any = dataclasses.field(kw_only=True)
-    partitions: Optional[list] = None
+    partitions: Optional[Union[list, ClientIndexMap]] = None
     partition_stats: dict = dataclasses.field(default_factory=dict)
     meta: dict = dataclasses.field(default_factory=dict)
 

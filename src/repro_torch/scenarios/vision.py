@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.data import make_image_classification, partition_stats
+from repro_torch.fed.staging import mark_thread_safe
 from repro_torch.models.vision import (
     accuracy, classification_loss, cnn_apply, init_cnn, init_vit, vit_apply,
 )
@@ -79,6 +80,9 @@ def materialize_vision(spec: ScenarioSpec, seed: int, n_clients: int,
 
     batch = spec.batch_size
 
+    # pure in (cid, rng): reads immutable arrays and the lock-guarded lazy
+    # partition map, so the pipeline's stager threads may call it at once
+    @mark_thread_safe
     def batch_fn(cid, rng):
         # fixed size (with replacement) so cohort batches stack
         idx = rng.choice(parts[cid], size=batch, replace=True)

@@ -426,7 +426,9 @@ def test_build_experiment_runtime_rules(tiny_cpu):
     with pytest.raises(NotImplementedError, match="item 9"):
         build_experiment("fedavg", scenario=tiny_cpu, device="cpu",
                          traffic=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # population mode is ported: a population object needs the config's
+    # population knobs
+    with pytest.raises(ValueError, match="population_size is not set"):
         build_experiment("fedavg", scenario=tiny_cpu, device="cpu",
                          async_cfg=acfg, population=object())
     with pytest.raises(ValueError, match="lock-step"):

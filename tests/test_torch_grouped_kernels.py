@@ -83,9 +83,9 @@ def _fake_ptrs(n, width, base=0x7F0000000000, step=1 << 20):
 
 def test_table_capacities_fit_the_launch_parameters():
     assert suk.LEAF.itemsize == 56 and suk.HEADER.itemsize == 32
-    assert fak.LEAF.itemsize == 48 and fak.HEADER.itemsize == 32
+    assert fak.LEAF.itemsize == 56 and fak.HEADER.itemsize == 32
     assert suk.MAX_LEAVES == (32764 - 32) // 56 == 584
-    assert fak.MAX_LEAVES == (32764 - 32) // 48 == 681
+    assert fak.MAX_LEAVES == (32764 - 32) // 56 == 584
     for mod in (suk, fak):
         assert mod.TABLE_BYTES <= grouped.PARAM_LIMIT
         assert mod.TABLE_BYTES + mod.LEAF.itemsize > grouped.PARAM_LIMIT

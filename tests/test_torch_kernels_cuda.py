@@ -24,7 +24,10 @@ Tolerances:
     version's NaN or inf scale (its codes, a NaN cast to int8, are not
     compared).
   * dequant_accumulate (one leaf or a group): 4 B u sum_i |w_i s_i q_i|
-    per element (B f32 products summed in another order).
+    per element; since the carry operand the kernel rounds each product
+    and sum alone in client order, as the plain version does, and the
+    carry tests hold it bitwise (carry or none, vectorized and ragged
+    leaves, NaN in the carry).
   * newton_schulz_group: each of its 15 products within the matmul_fused
     bound above on the kernel's own inputs; the output within 1e-4 of
     the plain composition (f32 against f64 of the same composition
@@ -569,6 +572,58 @@ def test_dequant_accumulate_group_splits_at_the_table_limit(cuda):
     for (q, s), out in zip(coded, got):
         err = (out.cpu() - dequant_accumulate_plain(q, s, w)).abs()
         assert bool((err <= _da_bound(q, s, w, q.shape[1])).all())
+
+
+def _carry_case(gen, b, ns):
+    coded = [quantize_plain(torch.randn((b, n), generator=gen)) for n in ns]
+    w = torch.rand(b, generator=gen) * 0.8 + 0.1       # w < 1
+    carry = [torch.randn(n, generator=gen) for n in ns]
+    return coded, w, carry
+
+
+def test_dequant_accumulate_carry_bitwise_against_plain(cuda):
+    """Vectorized leaves (n % 4 == 0, aligned) and ragged ones, a carry at
+    a 4-byte offset (scalar loads), NaN in one carry: one launch, every
+    output bitwise equal to the plain ``carry + sum``."""
+    gen = torch.Generator().manual_seed(41)
+    ns = (110592, 192, 36864, 216, 8, 1001, 10, 4096)
+    coded, w, carry = _carry_case(gen, 4, ns)
+    carry[5][7] = float("nan")
+    dev_carry = [c.to(cuda) for c in carry]
+    buf = torch.empty(4096 + 1, device=cuda)
+    buf[1:] = carry[-1].to(cuda)
+    dev_carry[-1] = buf[1:]
+    assert dev_carry[-1].data_ptr() % 16 == 4
+    before = dequant_accumulate.launches
+    got = dequant_accumulate_group([q.to(cuda) for q, _ in coded],
+                                   [s.to(cuda) for _, s in coded],
+                                   w.to(cuda), carry=dev_carry)
+    torch.cuda.synchronize()
+    assert dequant_accumulate.launches == before + 1
+    for (q, s), c, out in zip(coded, carry, got):
+        want = dequant_accumulate_plain(q, s, w, carry=c)
+        assert torch.equal(torch.isnan(out.cpu()), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(out.cpu()),
+                           torch.nan_to_num(want))
+    assert bool(torch.isnan(got[5][7]))
+
+
+def test_dequant_accumulate_none_carry_unchanged_and_bitwise(cuda):
+    gen = torch.Generator().manual_seed(43)
+    coded, w, carry = _carry_case(gen, 4, (4096, 1001, 192))
+    qs = [q.to(cuda) for q, _ in coded]
+    ss = [s.to(cuda) for _, s in coded]
+    plain = dequant_accumulate_group(qs, ss, w.to(cuda))
+    again = dequant_accumulate_group(qs, ss, w.to(cuda), carry=None)
+    folded = dequant_accumulate_group(qs, ss, w.to(cuda),
+                                      carry=[c.to(cuda) for c in carry])
+    for (q, s), c, a, b, f in zip(coded, carry, plain, again, folded):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), dequant_accumulate_plain(q, s, w))
+        assert torch.equal(f.cpu(), c + a.cpu())
+    one = dequant_accumulate(qs[0], ss[0], w.to(cuda),
+                             carry=carry[0].to(cuda))
+    assert torch.equal(one, folded[0])
 
 
 def test_dequant_accumulate_kernel_rejects_unaligned_block(cuda):

@@ -2,7 +2,9 @@
 
     python3 tools/profile_torch_round.py [--algorithm NAME] [--qblock]
                                          [--eig-method qr|ns]
-                                         [--runtime sync|async] [--out DIR]
+                                         [--runtime sync|async]
+                                         [--population serial|pipelined]
+                                         [--out DIR]
 
 Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
 0.5, K=10; ``fedpac_soap`` by default, Sophia at lr 2e-2 and
@@ -11,7 +13,11 @@ at Table 6's rank 4; ``--qblock`` puts both uploads on the int8 wire with
 error feedback; ``--runtime async`` runs the buffered-async runtime as
 ``chip_smoke.py`` does, 5 buffered of 10 in flight, where a round is one
 flush and the dispatches it waits for, and also prints the flush's
-dispatches), warms up one round, then
+dispatches; ``--population`` runs ``chip_smoke.py``'s population path
+instead — ``fedpac_sophia`` on the qblock wire with error feedback, a
+cohort of 16 from 10^6 ids, K=5, 24 state slots — as the serial round or
+as the 4-chunk pipeline, and also prints the traced round's
+``pipeline_bubble`` and state spills), warms up one round, then
 traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
@@ -65,6 +71,9 @@ def main():
     ap.add_argument("--eig-method", choices=("qr", "ns"), default=None,
                     help="SOAP's eigenbasis refresh (default: SOAP's, qr)")
     ap.add_argument("--runtime", choices=("sync", "async"), default="sync")
+    ap.add_argument("--population", choices=("serial", "pipelined"),
+                    default=None,
+                    help="chip_smoke.py's ViT-Tiny population path")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -73,8 +82,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     from chip_smoke import (
-        ASYNC_SEED, LIGHT_RANK, QBLOCK, SOPHIA_LR, async_config, card_line,
-        vit_tiny_spec,
+        ASYNC_SEED, LIGHT_RANK, POP_SIZE, POP_VIT, QBLOCK, SOPHIA_LR,
+        async_config, card_line, pop_scenario, vit_tiny_spec,
     )
     from repro_torch.api import build_experiment, materialize, resolve
     from torch.profiler import ProfilerActivity, profile
@@ -83,7 +92,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
     spec = vit_tiny_spec()
-    scn = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
     kw = dict(QBLOCK) if args.qblock else {}
     if resolve(args.algorithm).optimizer == "sophia":
         kw.update(lr=SOPHIA_LR, hessian_freq=10)
@@ -93,8 +101,20 @@ def main():
         kw.update(seed=ASYNC_SEED, async_cfg=async_config())
     opt_kwargs = ({} if args.eig_method is None
                   else {"eig_method": args.eig_method})
-    exp = build_experiment(args.algorithm, scenario=scn, participation=0.5,
-                           rounds=3, opt_kwargs=opt_kwargs, **kw)
+    if args.population is not None:
+        import tempfile
+        args.algorithm = "fedpac_sophia"
+        scn = pop_scenario(spec, POP_SIZE, "cuda")
+        os.makedirs(args.out, exist_ok=True)
+        kw = dict(POP_VIT, pipeline=args.population == "pipelined",
+                  spill_dir=tempfile.mkdtemp(prefix="spill_", dir=args.out))
+        exp = build_experiment(args.algorithm, scenario=scn, **kw)
+    else:
+        scn = materialize(spec, seed=0, n_clients=spec.n_clients,
+                          device="cuda")
+        exp = build_experiment(args.algorithm, scenario=scn,
+                               participation=0.5, rounds=3,
+                               opt_kwargs=opt_kwargs, **kw)
     print(f"{args.algorithm} {args.runtime} {kw} {opt_kwargs}")
     exp.run_round()                      # warm-up: compiles, allocator
     t0 = time.perf_counter()
@@ -127,6 +147,13 @@ def main():
     if sched is not None:
         print(f"  the traced flush waited for {sched._seq - d0} "
               f"dispatches (one client each)")
+    if args.population is not None:
+        rec = exp.history[-1]
+        print(f"  population {args.population}: pipeline_bubble "
+              f"{rec.get('pipeline_bubble', 'n/a (serial)')}, stage wait "
+              f"{rec.get('pipeline_stage_wait_s', 'n/a')} s, restore wait "
+              f"{rec.get('pipeline_restore_wait_s', 'n/a')} s, state peak "
+              f"{rec['state_peak']}, {rec['state_spills']} spills so far")
     grouped = collections.Counter()
     members = collections.defaultdict(list)
     for name, us in kernel_us.most_common():
