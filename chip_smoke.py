@@ -50,6 +50,22 @@ qblock messages with unit weights is held bitwise against the sync
 "kernel" rows for the five triads at 256x256 and 768x768 and holds each
 kernel output against the plain one.
 
+Then the LM path and the continuous-traffic runtime: the published
+LLaMA-60M (``configs/llama_60m.py``, unreduced, registered through
+``scenarios.lm.register_lm_model``) on ``lm_zipf`` at vocab 32000, seq
+256, batch 16, 8 clients at participation 0.25, K=5 — ``fedpac_soap`` 3
+rounds (5 ``matmul_fused`` and 11 ``adam_moments`` a step, the untrained
+loss at its expectation, the loss falling), ``fedpac_sophia`` and
+``fedpac_muon`` 2 rounds (1 ``sophia_update``; 15 ``matmul_fused`` and
+4 ``adam_moments`` a step) — with the three kernels also held against
+their plain versions at its shapes and ``matmul_fused``/``adam_moments``
+timed over one SOAP step; the tiny ``lm_zipf`` against the CPU path; and
+``examples/traffic_quickstart.py``'s stream (diurnal arrivals, churn,
+anytime eval, a hot-swap to fedavg halfway) on ViT-Tiny ``fedpac_soap``,
+checkpointed after flush 2 and restored into a freshly built experiment
+that must continue to the same history, and on the CNN against the CPU
+path (the same event stream, metrics at SOAP's CNN tolerances).
+
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
 refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
@@ -185,6 +201,41 @@ ASYNC_POP_BUDGET = 4
 # both sides (the Theta wire is lossy), so a chunked sum changes it by
 # roundoff of the two terms: Sophia's GPU-vs-CPU limits hold it
 POP_TOL, POP_REL_TOL = SOPHIA_TOL, SOPHIA_REL_TOL
+# the metrics every round of a vision path must keep finite
+FINITE = ("loss", "test_loss", "drift", "norm_drift")
+# the LM paths: the published LLaMA-60M (configs/llama_60m.py, unreduced:
+# 8 layers, d_model 512, 8 heads, d_ff 1376, vocab 32000, tied, f32) on
+# lm_zipf at benchmarks/table3_llm.py's document length, seq 256, batch
+# 16, 8 clients at participation 0.25 (S=2), K=5
+LM_SOURCE = dict(vocab=32000, tokens_per_doc=1900, seq_len=256, batch=16)
+LM_FL = dict(n_clients=8, participation=0.25, local_steps=5)
+LM_S = 2
+LM_LAYERS = 8
+LM_LEAVES = ([(512, 512)] * 4 + [(512, 1376)] * 2 + [(1376, 512)])
+LM_FINITE = ("loss", "eval_loss", "token_acc", "drift", "norm_drift")
+# the tiny lm_zipf (2 layers, d_model 64, vocab 256) GPU vs CPU: the CNN
+# paths' margins over tests/test_torch_lm.py's tolerances, the eval loss
+# and token accuracy in place of test_loss and test_acc
+LM_SOAP_TOL = {"loss": CNN_TOL["loss"], "eval_loss": CNN_TOL["test_loss"],
+               "token_acc": CNN_TOL["test_acc"]}
+LM_SOPHIA_TOL = {"loss": SOPHIA_TOL["loss"],
+                 "eval_loss": SOPHIA_TOL["test_loss"],
+                 "token_acc": SOPHIA_TOL["test_acc"]}
+# the continuous-traffic runtime: examples/traffic_quickstart.py's stream
+# (a diurnal trace of ~6 arrivals a simulated second, churn, anytime eval
+# every simulated second, a hot-swap to fedavg halfway), 3 buffered of 4
+# in flight, K=5; 5 simulated seconds make 4 flushes at seed 0, with
+# client_left and algo_swap discards (the CPU event stream, which no
+# device changes)
+TRAFFIC_BUDGET = 5.0
+TRAFFIC_TRACE = dict(trace="diurnal",
+                     trace_kwargs={"base": 6.0, "amplitude": 0.8,
+                                   "period": 4.0},
+                     eval_every=1.0, swap_to="fedavg",
+                     swap_at=TRAFFIC_BUDGET / 2)
+TRAFFIC_CHURN = dict(join_rate=0.5, leave_rate=0.5, initial_active=8)
+TRAFFIC_ACFG = dict(buffer_size=3, concurrency=4)
+TRAFFIC_K = 5
 
 
 def log(*a):
@@ -787,23 +838,31 @@ def check_profile_kernels(dev):
 
 def time_kernels(dev, gen):
     """One local SOAP step's worth of each kernel's work on ViT-Tiny at
-    S=5 (12 blocks x 4 matrix leaves, refresh excluded), timed for the
-    kernel, the plain version and a PyTorch library call, beside the
-    card's bound for the same work.  ``ms`` (CUDA events around the
-    loop of launches) includes the host's launch rate; ``device_ms`` and
-    its plain and library counterparts are the device time alone.
-    ``matmul_fused`` is timed as SOAP's step runs it (5 grouped launches:
-    ``ms``, ``device_ms``) and one product per launch (288 launches:
-    ``single_ms``, ``single_device_ms``); its library time is cuBLAS's
-    ``bmm``/``baddbmm``, one call per product."""
+    S=5 (12 blocks x 4 matrix leaves, refresh excluded): ``time_soap_step``
+    over its 48 matrix leaves."""
+    leaves = [leaf_inputs(m, n, S_VIT, dev, gen)
+              for _ in range(VIT_TINY["layers"]) for m, n in VIT_LEAVES]
+    return time_soap_step(f"one local step of ViT-Tiny (S={S_VIT})", leaves,
+                          leaves)
+
+
+def time_soap_step(what, leaves, adam_leaves):
+    """One local SOAP step's kernel work, refresh excluded: the six
+    products of each matrix leaf of ``leaves`` and ``adam_moments`` over
+    ``adam_leaves``, timed for the kernel, the plain version and a
+    PyTorch library call, beside the card's bound for the same work.
+    ``ms`` (CUDA events around the loop of launches) includes the host's
+    launch rate; ``device_ms`` and its plain and library counterparts are
+    the device time alone.  ``matmul_fused`` is timed as SOAP's step runs
+    it (5 grouped launches: ``ms``, ``device_ms``) and one product per
+    launch (``single_ms``, ``single_device_ms``); its library time is
+    cuBLAS's ``bmm``/``baddbmm``, one call per product."""
     from repro_torch.kernels.ns_ortho.kernel import (
         matmul_fused, matmul_fused_group, matmul_fused_plain,
     )
     from repro_torch.kernels.soap_rotate.kernel import (
         adam_moments, adam_moments_plain,
     )
-    leaves = [leaf_inputs(m, n, S_VIT, dev, gen)
-              for _ in range(VIT_TINY["layers"]) for m, n in VIT_LEAVES]
     forms = [f for x in leaves for f in gemm_forms(x)]
 
     def gemm(fn):
@@ -832,11 +891,11 @@ def time_kernels(dev, gen):
 
     def adam(fn):
         def run():
-            for x in leaves:
+            for x in adam_leaves:
                 fn(x["g"], x["M"], x["V"], step=3)
         return run
 
-    elems = sum(x["g"].numel() for x in leaves)
+    elems = sum(x["g"].numel() for x in adam_leaves)
     adam_bytes, adam_flops = 24 * elems, 12 * elems
     adam_bound = max(adam_bytes / HBM_BYTES_PER_S,
                      adam_flops / FP32_FLOPS) * 1e3
@@ -856,7 +915,7 @@ def time_kernels(dev, gen):
         ms=t["g"], plain_ms=t["p"], library_ms=t["l"], bound_ms=gemm_bound,
         bound_by=gemm_by, device_ms=d["g"], plain_device_ms=d["p"],
         library_device_ms=d["l"], single_ms=t["k"], single_device_ms=d["k"])
-    log(f"matmul_fused, one local step of ViT-Tiny (S={S_VIT}, "
+    log(f"matmul_fused, {what} ("
         f"{len(forms)} products, {flops / 1e9:.1f} GFLOP, "
         f"{bytes_ / 1e6:.1f} MB): grouped ({len(groups)} launches) "
         f"{t['g']:.3f} ms, single ({len(forms)} launches) {t['k']:.3f} ms, "
@@ -871,8 +930,8 @@ def time_kernels(dev, gen):
         ms=t["k"], plain_ms=t["p"], library_ms=None, bound_ms=adam_bound,
         bound_by="bytes", device_ms=d["k"], plain_device_ms=d["p"],
         library_device_ms=None)
-    log(f"adam_moments, one local step of ViT-Tiny (S={S_VIT}, "
-        f"{len(leaves)} launches, {elems / 1e6:.2f} M elements, "
+    log(f"adam_moments, {what} ("
+        f"{len(adam_leaves)} launches, {elems / 1e6:.2f} M elements, "
         f"{adam_bytes / 1e6:.1f} MB): kernel {t['k']:.3f} ms, plain "
         f"{t['p']:.3f} ms; device time {d['k']:.3f} / {d['p']:.3f} ms; "
         f"bound {adam_bound:.3f} ms (bytes)")
@@ -1029,10 +1088,11 @@ def kernel_wrappers():
             "dequant_accumulate": dequant_accumulate}
 
 
-def run_experiment(label, exp, expect=()):
+def run_experiment(label, exp, expect=(), finite=FINITE):
     """Drive ``exp`` for its rounds with every launch counter set to 0
     just before and read just after; fails if a kernel of ``expect`` was
-    never launched.  Returns (history, launches)."""
+    never launched or a metric of ``finite`` is not finite.  Returns
+    (history, launches)."""
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
@@ -1042,7 +1102,7 @@ def run_experiment(label, exp, expect=()):
         dt = time.perf_counter() - t0
         log(f"{label} round {rec['round']}: {dt:.2f} s "
             + json.dumps({k: rec[k] for k in sorted(rec)}))
-        for k in ("loss", "test_loss", "drift", "norm_drift"):
+        for k in finite:
             if not math.isfinite(rec[k]):
                 raise AssertionError(f"{label}: non-finite {k} {rec[k]}")
     launches = {name: w.launches for name, w in wrappers.items()}
@@ -1906,6 +1966,345 @@ def population_paths(total, vit_shapes):
     spill.cleanup()
 
 
+# ------------------------------------------------------------- LM paths
+
+def llama60m_spec():
+    """``lm_zipf`` on the published LLaMA-60M: a backbone registered
+    through the public hook ``register_lm_model`` (the catalog's factory
+    reduces the config, capping the heads at 4 and d_ff at 2 d_model)."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.scenarios.catalog import lm_zipf
+    from repro_torch.scenarios.lm import register_lm_model
+
+    def llama_60m(seed, *, vocab, device):
+        cfg = configs.get_config("llama-60m")
+        if cfg.vocab_size != vocab:
+            raise ValueError(f"vocab {vocab} != {cfg.vocab_size}")
+        gen = torch.Generator().manual_seed(seed)
+        return M.init_params(cfg, gen, device=device), cfg
+
+    register_lm_model("llama_60m", llama_60m)
+    return dataclasses.replace(
+        lm_zipf(**LM_SOURCE, name="lm_zipf_llama60m"), model="llama_60m",
+        model_kwargs={})
+
+
+def llama_leaves(dev, gen):
+    """The 7 stacked matrix leaves of LLaMA-60M at S=2 as SOAP's step sees
+    them, (S x layers, m, n), and the step's 4 Adam-fallback leaves
+    (embedding, the two stacked norms, final norm) as g/M/V triples."""
+    mats = [((m, n, LM_S * LM_LAYERS),
+             leaf_inputs(m, n, LM_S * LM_LAYERS, dev, gen))
+            for m, n in LM_LEAVES]
+
+    def triple(*shape):
+        return ((shape[-2] if len(shape) > 2 else 1, shape[-1], LM_S),
+                dict(g=torch.randn((LM_S, *shape), generator=gen,
+                                   device=dev),
+                     M=torch.randn((LM_S, *shape), generator=gen,
+                                   device=dev),
+                     V=torch.rand((LM_S, *shape), generator=gen,
+                                  device=dev)))
+
+    fallback = [triple(32000, 512), triple(LM_LAYERS, 512),
+                triple(LM_LAYERS, 512), triple(512)]
+    return mats, fallback
+
+
+def lm_kernel_checks(dev, gen):
+    """The three kernels of the LM paths held against their plain
+    versions at LLaMA-60M's shapes (stacked (S, 8, m, n) leaves, factors
+    up to 1376 wide, the 16.4 M-element fallback leaf), then
+    ``matmul_fused`` and ``adam_moments`` timed over one SOAP step.
+    Returns (max |err| by kernel, timings)."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves
+    mats, fallback = llama_leaves(dev, gen)
+    errs = {"matmul_fused": check_matmul_fused(mats),
+            "adam_moments": check_adam_moments(mats + fallback)}
+    shapes = [(LM_S, *p.shape) for p in tree_leaves(
+        M.param_shapes(configs.get_config("llama-60m")))]
+    errs["sophia_update"] = check_sophia_update(shapes, dev, gen)
+    timings = time_soap_step(
+        f"one local step of LLaMA-60M (S={LM_S}, 7 stacked matrix leaves)",
+        [x for _, x in mats], [x for _, x in mats + fallback])
+    return errs, timings
+
+
+def lm_paths(total):
+    """LLaMA-60M ``fedpac_soap`` (3 rounds), ``fedpac_sophia`` and
+    ``fedpac_muon`` (2 rounds each) at full width, then the tiny
+    ``lm_zipf`` GPU vs the CPU path (``fedpac_soap`` at eps=1e-3 and
+    ``fedpac_sophia`` with host-drawn probes, 3 rounds).  Adds each
+    kernel's launches to ``total``; returns the LM paths' own."""
+    from repro_torch.api import build_experiment, materialize
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.optim.api import matrix_mask
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    scn = materialize(llama60m_spec(), seed=0, device="cuda")
+    cfg = scn.meta["model_cfg"]
+    mask = tree_leaves(matrix_mask(scn.params))
+    n_mat, n_fallback = sum(mask), len(mask) - sum(mask)
+    log(f"LLaMA-60M: {M.num_params(cfg)} parameters, {len(mask)} leaves "
+        f"({n_mat} stacked matrices, {n_fallback} Adam fallback); lm_zipf "
+        f"at vocab {cfg.vocab_size}, seq {LM_SOURCE['seq_len']}, batch "
+        f"{LM_SOURCE['batch']}, materialized in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (n_mat, n_fallback) != (7, 4):
+        raise AssertionError(f"LLaMA-60M: {n_mat} matrix and {n_fallback} "
+                             "fallback leaves, want 7 and 4")
+    # the untrained model's loss: its logits h . e are N(0, s2) with s2 =
+    # 0.02^2 d_model (unit-RMS hidden states against the tied N(0, 0.02^2)
+    # embedding), so the expected cross-entropy is ln V + s2 / 2.  (A
+    # round's loss is the mean over its K steps, already lower.)
+    loss0 = float(scn.eval_fn(scn.params)["eval_loss"])
+    want0 = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    if abs(loss0 - want0) > 0.05:
+        raise AssertionError(f"LLaMA-60M: initial eval loss {loss0}, want "
+                             f"ln V + s2/2 = {want0}")
+    lm = collections.Counter()
+
+    def drive(label, algo, rounds, expect, per_step, **kw):
+        exp = metrics_on_card(build_experiment(
+            algo, scenario=scn, rounds=rounds, **LM_FL, **kw))
+        hist, launches = run_experiment(label, exp, expect, LM_FINITE)
+        steps = exp.fed.local_steps * rounds
+        for name, per in per_step.items():
+            if launches[name] != per * steps:
+                raise AssertionError(f"{label}: {launches[name]} {name} "
+                                     f"launches, want {per} x {steps} steps")
+        lm.update(launches)
+        return hist
+
+    # SOAP's step: 5 grouped matmul_fused over the 7 stacked leaves (the
+    # QR refresh launches none), one adam_moments a leaf
+    hist = drive("llama-60m fedpac_soap", "fedpac_soap", 3,
+                 ("matmul_fused", "adam_moments"),
+                 {"matmul_fused": 5, "adam_moments": n_mat + n_fallback})
+    if not loss0 > hist[0]["loss"] > hist[-1]["loss"]:
+        raise AssertionError("llama-60m fedpac_soap: the loss did not fall "
+                             f"({loss0} -> {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']})")
+    log(f"llama-60m fedpac_soap: loss {loss0:.4f} at init (ln V + s2/2 = "
+        f"{want0:.4f}), {hist[0]['loss']:.4f} in round 1, "
+        f"{hist[-1]['loss']:.4f} in round 3")
+    # Sophia: one grouped sophia_update a step, the curvature from
+    # Hutchinson's jvp of grad through attention at step 0
+    drive("llama-60m fedpac_sophia", "fedpac_sophia", 2,
+          ("sophia_update",), {"sophia_update": 1})
+    # Muon: 15 matmul_fused a step (w_down's 1376 x 512 stack as
+    # transposed views), the fallback leaves through adam_moments
+    drive("llama-60m fedpac_muon", "fedpac_muon", 2,
+          ("matmul_fused", "adam_moments"),
+          {"matmul_fused": 15, "adam_moments": n_fallback})
+    del scn
+
+    tiny = materialize("lm_zipf", seed=0, device="cuda")
+    tiny_cpu = dataclasses.replace(
+        materialize("lm_zipf", seed=0, device="cpu"),
+        params=params_from_numpy(params_to_numpy(tiny.params), "cpu"))
+    for algo, kw, per_step, tol, rel in (
+            ("fedpac_soap", dict(opt_kwargs={"eps": CNN_EPS}),
+             {"matmul_fused": 5}, LM_SOAP_TOL, CNN_REL_TOL),
+            ("fedpac_sophia", dict(lr=SOPHIA_LR), {"sophia_update": 1},
+             LM_SOPHIA_TOL, SOPHIA_REL_TOL)):
+        label = f"lm_zipf {algo}"
+        kw = dict(kw, rounds=ROUNDS, local_steps=5)
+        # Sophia's probes drawn on the host, the same bits on both sides
+        probes = with_host_probes if "sophia_update" in per_step else (
+            lambda e: e)
+        exp = metrics_on_card(probes(build_experiment(
+            algo, scenario=tiny, **kw)))
+        gpu, launches = run_experiment(label, exp, tuple(per_step),
+                                       LM_FINITE)
+        for name, per in per_step.items():
+            if launches[name] != per * 5 * ROUNDS:
+                raise AssertionError(f"{label}: {launches[name]} {name}")
+        lm.update(launches)
+        ref, _ = run_experiment(f"{label} (cpu reference)", probes(
+            build_experiment(algo, scenario=tiny_cpu, device="cpu", **kw)),
+            finite=LM_FINITE)
+        compare_histories(label, ref, gpu, tol, rel)
+    for name, n in lm.items():
+        total[name] += n
+    return lm
+
+
+# -------------------------------------------------------- traffic paths
+
+def soap_spec_at(eps):
+    """``fedpac_soap`` whose SOAP runs at ``eps``, set through the spec:
+    a hot-swap hands the run's ``opt_kwargs`` to the new algorithm, and
+    fedavg's SGD takes no ``eps``."""
+    from repro_torch.api import resolve
+    base = resolve("fedpac_soap")
+
+    @dataclasses.dataclass(frozen=True)
+    class AtEps(type(base)):
+        def make_optimizer(self, **kw):
+            return super().make_optimizer(**{"eps": eps, **kw})
+
+    return AtEps(**{f.name: getattr(base, f.name)
+                    for f in dataclasses.fields(base)})
+
+
+def traffic_experiment(algo, scenario, **kw):
+    from repro_torch.api import (
+        AsyncConfig, ChurnConfig, TrafficConfig, build_experiment,
+    )
+    return build_experiment(
+        algo, scenario=scenario, rounds=1, local_steps=TRAFFIC_K, seed=0,
+        async_cfg=AsyncConfig(**TRAFFIC_ACFG),
+        traffic=TrafficConfig(churn=ChurnConfig(**TRAFFIC_CHURN),
+                              **TRAFFIC_TRACE), **kw)
+
+
+def skeleton(events):
+    """What two runs of one stream must repeat exactly: event types,
+    phases, rounds, clients, versions, reasons, in-flight flags, sim
+    times, algorithms (run_id, seq, dur_s and float metrics excluded)."""
+    keys = ("event", "phase", "round", "client_id", "reason", "version",
+            "in_flight", "sim_time", "algorithm")
+    return [tuple(e.get(k) for k in keys) for e in events]
+
+
+def run_traffic(label, exp, params, ckpt_dir=None):
+    """Replays the stream to ``TRAFFIC_BUDGET`` with the launch counters
+    set to 0 just before and read just after, a ``MemorySink`` attached,
+    and (with ``ckpt_dir``) a mid-stream checkpoint after flush 2.
+    Checks the trace (schema, contiguous numbering, one
+    ``client_dropped`` event per dropped or discarded arrival, both
+    ``client_left`` and ``algo_swap`` discards, the swap to fedavg) and
+    on the card the launches: 5 ``matmul_fused`` a SOAP step and one
+    ``adam_moments`` a leaf a step of every dispatch trained before the
+    swap.  Returns
+    (launches, sink, seq after the checkpoint)."""
+    from repro_torch.obs import MemorySink, attach, validate_event
+    from repro_torch.utils.tree import tree_leaves
+    sink = MemorySink()
+    attach(exp, sink)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    seq0 = None
+    t0 = time.perf_counter()
+    if ckpt_dir is not None:
+        exp.run_stream(max_flushes=2)
+        exp.save_checkpoint(ckpt_dir)
+        seq0 = exp.tracer.seq
+    summary = exp.run_stream(sim_budget=TRAFFIC_BUDGET)
+    secs = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for rec in exp.history:
+        log(f"{label} flush {rec['round']}: " + json.dumps(
+            {k: rec[k] for k in sorted(rec)}))
+        for k in ("loss", "drift", "norm_drift"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"{label}: non-finite {k} {rec[k]}")
+    for rec in exp.eval_history:
+        if not all(math.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{label}: non-finite eval {rec}")
+    log(f"{label}: {json.dumps(summary)}; launches {json.dumps(launches)}")
+    for ev in sink.events:
+        validate_event(ev)
+    if [e["seq"] for e in sink.events] != list(range(len(sink.events))):
+        raise AssertionError(f"{label}: trace numbering is not contiguous")
+    reasons = collections.Counter(e["reason"] for e in sink.events
+                                  if e["event"] == "client_dropped")
+    if sum(reasons.values()) != exp.total_dropped + exp.total_discarded \
+            or not reasons["client_left"] or not reasons["algo_swap"]:
+        raise AssertionError(f"{label}: drops {dict(reasons)}, "
+                             f"{exp.total_dropped} dropped + "
+                             f"{exp.total_discarded} discarded")
+    swap = [i for i, e in enumerate(sink.events)
+            if e["event"] == "run_start" and e.get("swapped")]
+    if len(swap) != 1 or exp.spec.name != "fedavg" or \
+            len(exp.history) != 4:
+        raise AssertionError(f"{label}: {len(swap)} swaps, now "
+                             f"{exp.spec.name}, {len(exp.history)} flushes")
+    soap = sum(e.get("phase") == "local_update"
+               for e in sink.events[:swap[0]])
+    steps = TRAFFIC_K * soap
+    counted = exp.device.type == "cuda"   # the CPU path launches none
+    for name, want in (("matmul_fused", 5 * steps),
+                       ("adam_moments", len(tree_leaves(params)) * steps)):
+        if counted and launches[name] != want:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, want {want} ({soap} SOAP "
+                                 "dispatches)")
+    log(f"{label}: {len(exp.history)} flushes in {secs:.2f} s "
+        f"({secs / len(exp.history):.2f} s a flush), {soap} SOAP dispatches "
+        f"before the swap, drops {dict(reasons)}")
+    return launches, sink, seq0
+
+
+def traffic_paths(total):
+    """The continuous-traffic runtime: the quickstart's stream on ViT-Tiny
+    ``fedpac_soap`` (a checkpoint after flush 2, restored into a freshly
+    built experiment that continues to the same history, eval history and
+    trace), then the same stream on the CNN against the CPU path (event
+    stream equal, metrics within SOAP's CNN tolerances).  Adds each
+    kernel's launches to ``total``."""
+    import tempfile
+
+    from repro_torch.api import materialize
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.obs import MemorySink, attach
+
+    spec = vit_tiny_spec()
+    vit = materialize(spec, seed=0, n_clients=spec.n_clients, device="cuda")
+    label = "vit_tiny traffic fedpac_soap"
+    with tempfile.TemporaryDirectory() as ckpt:
+        exp = traffic_experiment("fedpac_soap", vit)
+        launches, sink, seq0 = run_traffic(label, exp, vit.params, ckpt)
+        for name, n in launches.items():
+            total[name] += n
+        t0 = time.perf_counter()
+        again = traffic_experiment("fedpac_soap", vit)
+        again_sink = MemorySink()
+        attach(again, again_sink)
+        again.load_checkpoint(ckpt)
+        again.run_stream(sim_budget=TRAFFIC_BUDGET)
+        secs = time.perf_counter() - t0
+    tail = [e for e in sink.events if e["seq"] >= seq0]
+    if (again.history, again.eval_history, skeleton(again_sink.events)) != \
+            (exp.history, exp.eval_history, skeleton(tail)):
+        raise AssertionError(f"{label}: the restored stream diverged")
+    log(f"{label}: checkpoint after flush 2 restored into a fresh "
+        f"experiment continued to the same history, eval history and "
+        f"{len(tail)} trace events ({secs:.2f} s)")
+    del exp, again, vit
+
+    label = "cifar_like_cnn traffic fedpac_soap"
+    cnn = materialize("cifar_like_cnn", seed=0, device="cuda")
+    cnn_cpu = dataclasses.replace(
+        materialize("cifar_like_cnn", seed=0, device="cpu"),
+        params=params_from_numpy(params_to_numpy(cnn.params), "cpu"))
+    algo = soap_spec_at(CNN_EPS)
+    gpu = traffic_experiment(algo, cnn)
+    launches, sink, _ = run_traffic(label, gpu, cnn.params)
+    for name, n in launches.items():
+        total[name] += n
+    ref = traffic_experiment(algo, cnn_cpu, device="cpu")
+    _, ref_sink, _ = run_traffic(f"{label} (cpu reference)", ref,
+                                 cnn_cpu.params)
+    if skeleton(sink.events) != skeleton(ref_sink.events):
+        raise AssertionError(f"{label}: the event stream differs from the "
+                             "CPU path's")
+    compare_histories(label, ref.history, gpu.history,
+                      {"loss": CNN_TOL["loss"]}, CNN_REL_TOL)
+    compare_histories(label, ref.eval_history, gpu.eval_history,
+                      {k: CNN_TOL[k] for k in ("test_loss", "test_acc")}, {},
+                      what="GPU anytime eval agrees with the CPU plain path")
+    log(f"{label}: event stream ({len(sink.events)} events) equal to the "
+        "CPU path's")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1949,9 +2348,14 @@ def main():
     timings.update(time_newton_schulz(mats))
     timings["dequant_accumulate"].update(carry_times)
     del mats
+    lm_errs, lm_timings = lm_kernel_checks(dev, gen)
     launches = main_paths(vit_shapes, cnn_shapes)
     async_paths(launches)
     population_paths(launches, vit_shapes)
+    t_lm = time.perf_counter()
+    lm_launches = lm_paths(launches)
+    traffic_paths(launches)
+    log(f"LM and traffic paths: {time.perf_counter() - t_lm:.1f} s")
 
     meta = {
         "adam_moments": dict(
@@ -1983,6 +2387,12 @@ def main():
     kernels = [dict(name=name, **meta[name], launches=launches[name],
                     max_abs_err=errs[name], **timings[name])
                for name in meta]
+    # the first times at transformer shapes: one LLaMA-60M SOAP step,
+    # launched on the LM paths
+    kernels += [dict(name=f"{name}@llama-60m", **meta[name],
+                     launches=lm_launches[name], max_abs_err=lm_errs[name],
+                     **lm_timings[name])
+                for name in ("matmul_fused", "adam_moments")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Top-level public API: the algorithm and scenario registries and
-``build_experiment`` — counterpart of ``repro/api.py`` (the sync and
-buffered-asynchronous runtimes).
+``build_experiment`` — counterpart of ``repro/api.py`` (the sync,
+buffered-asynchronous and continuous-traffic runtimes).
 
     from repro_torch.api import build_experiment
 
@@ -21,11 +21,20 @@ buffered-asynchronous runtimes).
                            population_size=1_000_000, cohort_size=16,
                            pipeline=True, pipeline_chunk=4)
 
+    exp = build_experiment(                        # continuous traffic
+        "fedpac_soap", scenario="cifar_like_cnn",
+        traffic=TrafficConfig(trace="diurnal", trace_kwargs={"base": 6.0},
+                              eval_every=1.0,
+                              churn=ChurnConfig(join_rate=0.5,
+                                                leave_rate=0.5)))
+    summary = exp.run_stream(sim_budget=20.0)
+
 Every registered algorithm builds the same way: ``fedavg``, ``fedcm``,
 ``scaffold``, ``{local,fedpac,align_only,correct_only}_{sgd,adamw,muon,
 soap,sophia}``, ``fedpm_{adamw,sophia,muon,soap}``, and the
 ``<registered>_light`` variant of each (rank-r SVD Theta upload);
-scenarios ``cifar_like_{cnn,vit}[_dir0.05|_shard|_iid]``.
+scenarios ``cifar_like_{cnn,vit}[_dir0.05|_shard|_iid]`` and
+``lm_zipf[_dir0.05|_shard|_iid]``.
 """
 from __future__ import annotations
 
@@ -43,6 +52,10 @@ from repro_torch.fed.async_runtime import (  # noqa: F401
 )
 from repro_torch.fed.base import FedExperiment
 from repro_torch.fed.rounds import FedConfig, FederatedExperiment
+from repro_torch.fed.traffic import (  # noqa: F401  (re-exported API)
+    BurstyRate, ChurnConfig, ConstantRate, DiurnalRate, PiecewiseRate,
+    TrafficConfig, TrafficExperiment, run_ab, time_to_quality,
+)
 from repro_torch.scenarios import (  # noqa: F401  (re-exported API)
     DuplicateScenarioError, PartitionSpec, Scenario, ScenarioSpec,
     UnknownScenarioError, materialize,
@@ -56,13 +69,14 @@ from repro_torch.utils.hw import resolve_device
 
 __all__ = [
     "AlgorithmSpec", "AsyncConfig", "AsyncFederatedExperiment",
-    "ClientStateSpec", "DuplicateAlgorithmError",
-    "DuplicateScenarioError", "FedConfig", "FedExperiment", "LatencyModel",
-    "PartitionSpec",
-    "Scenario", "ScenarioSpec", "UnknownAlgorithmError",
-    "UnknownScenarioError", "build_experiment", "materialize", "register",
-    "register_scenario", "registered", "registered_scenarios", "resolve",
-    "resolve_scenario",
+    "BurstyRate", "ChurnConfig", "ClientStateSpec", "ConstantRate",
+    "DiurnalRate", "DuplicateAlgorithmError", "DuplicateScenarioError",
+    "FedConfig", "FedExperiment", "LatencyModel", "PartitionSpec",
+    "PiecewiseRate", "Scenario", "ScenarioSpec", "TrafficConfig",
+    "TrafficExperiment", "UnknownAlgorithmError", "UnknownScenarioError",
+    "build_experiment", "materialize", "register", "register_scenario",
+    "registered", "registered_scenarios", "resolve", "resolve_scenario",
+    "run_ab", "time_to_quality",
 ]
 
 
@@ -95,6 +109,11 @@ def build_experiment(
     async_cfg: the async runtime's knobs; implies ``runtime="async"`` when
       no config and no ``runtime`` override was passed — an explicit one
       is authoritative, and a sync one with ``async_cfg`` is an error.
+    traffic: optional ``repro_torch.fed.traffic.TrafficConfig`` — selects
+      the trace-driven continuous-traffic runtime (``TrafficExperiment``):
+      open-ended arrival streams, churn, budgets, anytime eval, hot-swap.
+      Implies ``runtime="async"`` when no runtime is named; incompatible
+      with an explicit sync runtime.
     population: optional ``fed.population.ClientPopulation`` carrying a
       weighted or availability sampler; it must agree with the config's
       population knobs (``population_size``/``cohort_size``).  With
@@ -102,17 +121,11 @@ def build_experiment(
       population is built from the config.  In population mode a scenario
       is materialized over the id space (``population_size`` clients):
       use a lazy partition kind (``stream_dirichlet``) at 10^5+ ids.
-    traffic: the continuous-traffic runtime is not ported; passing it
-      raises NotImplementedError.
     """
-    if traffic is not None:
-        raise NotImplementedError(
-            "the continuous-traffic runtime is not ported (ROADMAP queue 1 "
-            "item 9: fed/traffic)")
     spec = resolve(algorithm)
     changes = dict(fed_overrides, algorithm=spec.name)
-    if async_cfg is not None and fed is None and \
-            "runtime" not in fed_overrides:
+    if (async_cfg is not None or traffic is not None) and fed is None \
+            and "runtime" not in fed_overrides:
         changes["runtime"] = "async"
 
     if scenario is not None:
@@ -162,9 +175,18 @@ def build_experiment(
             raise ValueError(
                 "async_cfg given but the config says runtime='sync' — set "
                 "runtime='async' (or drop the async_cfg)")
+        if traffic is not None:
+            raise ValueError(
+                "traffic= given but the config says runtime='sync' — the "
+                "continuous-traffic runtime is event-driven (async)")
         exp = FederatedExperiment(cfg, params, loss_fn, client_batch_fn,
                                   eval_fn, opt_kwargs, spec=spec,
                                   population=population)
+    elif traffic is not None:
+        exp = TrafficExperiment(cfg, params, loss_fn, client_batch_fn,
+                                eval_fn, opt_kwargs, async_cfg=async_cfg,
+                                spec=spec, population=population,
+                                traffic=traffic)
     else:
         exp = AsyncFederatedExperiment(cfg, params, loss_fn, client_batch_fn,
                                        eval_fn, opt_kwargs,

@@ -1,5 +1,6 @@
 """Federated runtimes (counterpart of ``repro/fed``): the sync runtime,
-the buffered-asynchronous runtime and the population layer."""
+the buffered-asynchronous runtime, the population layer and the
+continuous-traffic runtime."""
 from repro_torch.fed.base import FedExperiment, make_experiment  # noqa: F401
 from repro_torch.fed.rounds import (  # noqa: F401
     FedConfig, FederatedExperiment,
@@ -14,4 +15,8 @@ from repro_torch.fed.population import (  # noqa: F401
     AvailabilitySampler, ClientPopulation, ClientStateStore,
     DenseClientStore, UniformSampler, WeightedSampler, make_client_store,
     make_population, stage_population_batches,
+)
+from repro_torch.fed.traffic import (  # noqa: F401
+    BurstyRate, ChurnConfig, ConstantRate, DiurnalRate, PiecewiseRate,
+    TrafficConfig, TrafficExperiment,
 )

@@ -121,13 +121,17 @@ class AsyncFederatedExperiment(FedExperiment):
         self.rng = np.random.default_rng(fed.seed + 1)
         self.total_dropped = 0
         self.total_discarded = 0
+        # flushes evaluate; the traffic runtime turns this off when its
+        # anytime eval samples a simulated-time grid of its own
+        self._flush_eval = True
 
     # ------------------------------------------------------------ algorithm
 
     def _bind_spec(self, spec, params, opt_kwargs: Optional[dict]) -> None:
         """Resolve ``spec`` and build what derives from it: the optimizer,
         lr, transport, the one-client wire step, the flush and the EF
-        residuals."""
+        residuals.  Called at construction, and again by the traffic
+        runtime's hot-swap (``fed.traffic.hotswap.apply_swap``)."""
         fed = self.fed
         self.spec = resolve(spec)
         if self.spec.client_state is not None:
@@ -321,7 +325,7 @@ class AsyncFederatedExperiment(FedExperiment):
                        state_peak=self._ef_store.peak_resident,
                        state_spills=self._ef_store.spills,
                        state_restores=self._ef_store.restores)
-        if self.eval_fn is not None:
+        if self.eval_fn is not None and self._flush_eval:
             with t.span("eval", round=rnum, sim_time=sched.now):
                 rec.update({k: float(v) for k, v in
                             self.eval_fn(self.server.params).items()})

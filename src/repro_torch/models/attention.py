@@ -1,0 +1,147 @@
+"""Attention: GQA (+bias) and sliding-window / local attention, without a
+KV cache (counterpart of ``repro/models/attention.py``).
+
+Written as the reference writes it, in plain tensor ops: grouped query
+heads contract against the raw KV heads (no repeat), scores in f32 scaled
+by ``dh ** -0.5``, the causal (and windowed) mask applied with ``NEG_INF``
+through a ``where``, then a softmax.  ``F.scaled_dot_product_attention``
+is not used: it may sum in another order on the card, and the CPU parity
+would then not say what runs there.  Long sequences
+(``sq >= cfg.attn_chunk_threshold``) use the flash-style online softmax
+over KV chunks (``_chunked_sdpa``), the reference's ``lax.scan`` as a
+loop.  MLA and the KV cache (decode) wait for ROADMAP queue 1 item 11.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Initializer
+from repro_torch.models.rope import apply_rope
+
+NEG_INF = -1e30
+
+
+# ================================================================ init
+
+def init_attention(ini: Initializer, cfg: ModelConfig):
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": ini.dense((d, nq * hd)),
+        "wk": ini.dense((d, nkv * hd)),
+        "wv": ini.dense((d, nkv * hd)),
+        "wo": ini.dense((nq * hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ini.zeros((nq * hd,))
+        p["bk"] = ini.zeros((nkv * hd,))
+        p["bv"] = ini.zeros((nkv * hd,))
+    return p
+
+
+# ================================================================ masks
+
+def _causal_window_mask(q_pos, k_pos, window: int):
+    """q_pos: (..., Sq), k_pos: (..., Sk) -> bool mask (..., Sq, Sk)."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    m = dk <= dq
+    if window:
+        m = m & (dk > dq - window)
+    return m
+
+
+# ================================================================ core attention
+
+def _sdpa(q, k, v, q_pos, k_pos, window: int):
+    """Plain attention. q: (B,Sq,H,D) k/v: (B,Sk,Hkv,D).
+
+    GQA contracts grouped query heads against the raw KV heads (no
+    repeat of K/V)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    qg = q.reshape(b, sq, hkv, rep, dh)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).to(torch.float32)
+    scores = scores * dh ** -0.5
+    mask = _causal_window_mask(q_pos, k_pos, window)[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def _chunked_sdpa(q, k, v, q_pos, k_pos, window: int, chunk: int):
+    """Flash-style online softmax over KV chunks; O(Sq * chunk)
+    transients.  The chunks run in order, as the reference's scan."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    hkv = k.shape[2]
+    rep = h // hkv
+    pad = (-sk) % chunk
+    if pad:
+        k = torch.cat([k, k.new_zeros((b, pad, *k.shape[2:]))], dim=1)
+        v = torch.cat([v, v.new_zeros((b, pad, *v.shape[2:]))], dim=1)
+        k_pos = torch.cat([k_pos, k_pos.new_full((b, pad), 2**30)], dim=1)
+    scale = dh ** -0.5
+    qg = q.reshape(b, sq, hkv, rep, dh)
+
+    m = torch.full((b, hkv, rep, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l_sum = torch.zeros((b, hkv, rep, sq), dtype=torch.float32,
+                        device=q.device)
+    acc = torch.zeros((b, hkv, rep, sq, v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    for c in range(k.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kb, vb, pb = k[:, sl], v[:, sl], k_pos[:, sl]
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qg,
+                         kb).to(torch.float32) * scale
+        mask = _causal_window_mask(q_pos, pb, window)[:, None, None]
+        s = torch.where(mask, s, NEG_INF)
+        m_cur = torch.maximum(m, torch.amax(s, dim=-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l_sum = l_sum * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhrqk,bkhd->bhrqd", p.to(q.dtype), vb)
+        acc = acc * alpha[..., None].to(q.dtype) + pv
+        m = m_cur
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None].to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
+
+
+def sdpa(q, k, v, q_pos, k_pos, cfg: ModelConfig, window: int):
+    if q.shape[1] >= cfg.attn_chunk_threshold:
+        return _chunked_sdpa(q, k, v, q_pos, k_pos, window, cfg.attn_chunk)
+    return _sdpa(q, k, v, q_pos, k_pos, window)
+
+
+# ================================================================ GQA layer
+
+def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int):
+    """x: (B,S,D) -> (B,S,D), without a cache."""
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+
+    q = apply_rope(q, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction,
+                   mrope_sections=cfg.mrope_sections)
+    k = apply_rope(k, positions, theta=cfg.rope_theta,
+                   fraction=cfg.rope_fraction,
+                   mrope_sections=cfg.mrope_sections)
+
+    q_pos1d = positions[..., 0] if positions.ndim == 3 else positions
+    out = sdpa(q, k, v, q_pos1d, q_pos1d, cfg, window)
+    out = out.reshape(b, s, nq * hd)
+    return out @ p["wo"]

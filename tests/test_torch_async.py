@@ -39,8 +39,8 @@ from repro.fed.async_runtime import (
 from repro.fed.staging import stage_client_batches as jax_stage_client
 from repro.scenarios import resolve as jax_resolve_scenario
 from repro_torch.api import (
-    AsyncConfig, AsyncFederatedExperiment, LatencyModel, build_experiment,
-    materialize, resolve_scenario,
+    AsyncConfig, AsyncFederatedExperiment, LatencyModel, TrafficConfig,
+    TrafficExperiment, build_experiment, materialize, resolve_scenario,
 )
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import init_server
@@ -423,9 +423,13 @@ def test_build_experiment_runtime_rules(tiny_cpu):
     with pytest.raises(ValueError, match="async_cfg"):
         build_experiment("fedavg", scenario=tiny_cpu, async_cfg=acfg,
                          fed=FedConfig(n_clients=6, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # traffic= selects the continuous-traffic runtime, never a sync one
+    with pytest.raises(ValueError, match="sync"):
         build_experiment("fedavg", scenario=tiny_cpu, device="cpu",
-                         traffic=object())
+                         runtime="sync", traffic=TrafficConfig())
+    assert isinstance(build_experiment(
+        "fedavg", scenario=tiny_cpu, device="cpu",
+        traffic=TrafficConfig(trace_kwargs={"rate": 2.0})), TrafficExperiment)
     # population mode is ported: a population object needs the config's
     # population knobs
     with pytest.raises(ValueError, match="population_size is not set"):

@@ -60,6 +60,11 @@ def _run(code, cwd=ROOT, **env):
 def test_importing_every_port_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.optim.soap" in mods and "repro_torch.api" in mods
+    assert {"repro_torch.fed.traffic", "repro_torch.configs",
+            "repro_torch.scenarios.lm"} | {
+        f"repro_torch.models.{m}" for m in (
+            "config", "layers", "rope", "attention", "transformer",
+            "model")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

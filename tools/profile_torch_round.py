@@ -4,6 +4,7 @@
                                          [--eig-method qr|ns]
                                          [--runtime sync|async]
                                          [--population serial|pipelined]
+                                         [--scenario vit-tiny|llama-60m]
                                          [--out DIR]
 
 Runs a ViT-Tiny path of ``chip_smoke.py`` (10 clients at participation
@@ -17,7 +18,10 @@ dispatches; ``--population`` runs ``chip_smoke.py``'s population path
 instead — ``fedpac_sophia`` on the qblock wire with error feedback, a
 cohort of 16 from 10^6 ids, K=5, 24 state slots — as the serial round or
 as the 4-chunk pipeline, and also prints the traced round's
-``pipeline_bubble`` and state spills), warms up one round, then
+``pipeline_bubble`` and state spills; ``--scenario llama-60m`` runs
+``chip_smoke.py``'s full-width LLaMA-60M path instead of ViT-Tiny —
+``lm_zipf`` at vocab 32000, seq 256, batch 16, 8 clients at participation
+0.25, K=5, with the algorithm's own defaults), warms up one round, then
 traces one round with
 ``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
 time, the summed device time of all CUDA kernels and the device-busy share
@@ -74,6 +78,8 @@ def main():
     ap.add_argument("--population", choices=("serial", "pipelined"),
                     default=None,
                     help="chip_smoke.py's ViT-Tiny population path")
+    ap.add_argument("--scenario", choices=("vit-tiny", "llama-60m"),
+                    default="vit-tiny")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -82,8 +88,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     from chip_smoke import (
-        ASYNC_SEED, LIGHT_RANK, POP_SIZE, POP_VIT, QBLOCK, SOPHIA_LR,
-        async_config, card_line, pop_scenario, vit_tiny_spec,
+        ASYNC_SEED, LIGHT_RANK, LM_FL, POP_SIZE, POP_VIT, QBLOCK, SOPHIA_LR,
+        async_config, card_line, llama60m_spec, pop_scenario, vit_tiny_spec,
     )
     from repro_torch.api import build_experiment, materialize, resolve
     from torch.profiler import ProfilerActivity, profile
@@ -101,7 +107,12 @@ def main():
         kw.update(seed=ASYNC_SEED, async_cfg=async_config())
     opt_kwargs = ({} if args.eig_method is None
                   else {"eig_method": args.eig_method})
-    if args.population is not None:
+    if args.scenario == "llama-60m":
+        kw = dict(QBLOCK) if args.qblock else {}
+        scn = materialize(llama60m_spec(), seed=0, device="cuda")
+        exp = build_experiment(args.algorithm, scenario=scn, rounds=3,
+                               opt_kwargs=opt_kwargs, **LM_FL, **kw)
+    elif args.population is not None:
         import tempfile
         args.algorithm = "fedpac_sophia"
         scn = pop_scenario(spec, POP_SIZE, "cuda")
