@@ -66,6 +66,23 @@ checkpointed after flush 2 and restored into a freshly built experiment
 that must continue to the same history, and on the CNN against the CPU
 path (the same event stream, metrics at SOAP's CNN tolerances).
 
+Right after the build, two phases run each in a fresh process of this
+script (``--phase``), young enough for ``torch.profiler`` to keep every
+kernel of a trace: the serving path, the unreduced SmolLM-360M
+(``configs/smollm_360m.py``, 361,821,120 parameters, f32) served through
+``launch.serve.main`` (batch 8, prompt 256, 32 greedy tokens), its decode
+held against a full forward over the prompt and the generated tokens, its
+prefill and decode timed with CUDA events and one decode step traced
+(device-busy share); and ``matmul_fused``/``adam_moments`` held against
+their plain versions and timed over one SOAP step at SmolLM-360M's
+shapes (the kernels line's ``*@smollm-360m`` rows).  Last come the six
+dense tables ``reduced()`` (prefill and 4
+decode steps) and a windowed SmolLM decoded 20 steps into ring caches,
+each against the CPU port on the same weights; then ``fedpac_soap`` on
+the unreduced SmolLM-360M on ``lm_zipf`` at vocab 49,152 for two rounds
+(5 ``matmul_fused`` and 11 ``adam_moments`` a step, the untrained loss at
+its expectation, the loss falling).
+
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
 refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
@@ -87,7 +104,9 @@ Imports nothing of JAX.
 """
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -236,6 +255,33 @@ TRAFFIC_TRACE = dict(trace="diurnal",
 TRAFFIC_CHURN = dict(join_rate=0.5, leave_rate=0.5, initial_active=8)
 TRAFFIC_ACFG = dict(buffer_size=3, concurrency=4)
 TRAFFIC_K = 5
+# serving: the unreduced SmolLM-360M (configs/smollm_360m.py, f32 as
+# the serving driver sets it) through launch.serve.main, greedy
+SERVE = dict(batch=8, prompt=256, gen=32)
+# decode against a full forward over prompt + the first 31 generated
+# tokens, at full width: f32 end to end, but the prompt's forward and the
+# decode steps run GEMMs of other shapes (M = 8 rows against 2,296), which
+# cuBLAS sums in other orders; ~1e-6 relative a GEMM through 32 residual
+# layers stays far below 1e-3 on logits of standard deviation 0.6
+# (0.02 sqrt 960).  The reference's own bound at reduced widths is 2e-4.
+SERVE_DECODE_TOL = 1e-3
+# the six dense tables reduced, f32, prefill of 8 then 4 decode steps, GPU
+# vs the CPU port on the same weights: five times the CPU tests' 2e-5
+# against the reference, for two devices' sum orders
+DENSE_TABLES = ("starcoder2-3b", "smollm-360m", "chatglm3-6b",
+                "qwen1.5-110b", "qwen2-vl-7b", "musicgen-medium")
+TABLE_TOL = 1e-4
+RING = dict(block_pattern=("swa",), window=8)
+RING_STEPS = 20
+# training the unreduced SmolLM-360M: lm_zipf at its 49,152 vocab, seq
+# 256, batch 16, LM_FL (S=2, K=5); 32 layers of 7 stacked matrix leaves.
+# Two rounds: the second is the first with a Theta reference and g_G
+# carried over
+SMOL_SOURCE = dict(LM_SOURCE, vocab=49152)
+SMOL_ROUNDS = 2
+SMOL_LAYERS = 32
+SMOL_LEAVES = ([(960, 960), (960, 320), (960, 320), (960, 960)]
+               + [(960, 2560)] * 2 + [(2560, 960)])
 
 
 def log(*a):
@@ -268,12 +314,15 @@ def timed(fn, reps=5, rounds=3):
     return sorted(samples)[len(samples) // 2]
 
 
-def device_ms(fn, traces=3):
+def device_ms(fn, traces=3, floor_ms=0.0):
     """Summed device time (ms) of the CUDA kernels one call of ``fn``
     runs, from a ``torch.profiler`` trace: the work's cost on the card
     without the host's launch cost, which ``timed`` includes.  A trace
-    that comes back without the device's activity (seen once on a loaded
-    host) is taken again, up to ``traces`` times."""
+    that comes back without the device's activity, or below ``floor_ms``
+    (the card's bound for the work, which only a trace that lost kernels
+    can show), is taken again, up to ``traces`` times, and then the run
+    fails.  The profiler drops kernels as out of its window more and more
+    as a process ages (``fresh_phase``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(traces):
         torch.cuda.synchronize()
@@ -287,11 +336,33 @@ def device_ms(fn, traces=3):
                 else "self_cuda_time_total")
         us = sum(getattr(e, attr) for e in events
                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        if us > 0:
+        if us > 0 and us / 1e3 >= floor_ms:
             return us / 1e3
-        log("torch.profiler recorded no device time; tracing again")
-    raise AssertionError(f"torch.profiler recorded no device time in "
+        log(f"torch.profiler recorded {us / 1e3:.3f} ms of device time (the "
+            f"work's bound {floor_ms:.3f} ms); tracing again")
+    raise AssertionError(f"torch.profiler recorded no device time at or "
+                         f"above the work's bound ({floor_ms:.3f} ms) in "
                          f"{traces} traces")
+
+
+def fresh_phase(name):
+    """Runs phase ``name`` of ``PHASES`` in a new process of this script
+    (on the same card, the kernels' builds reused) and returns its
+    result.  ``torch.profiler`` keeps every kernel of a trace only in a
+    young process: tens of seconds after a process's first trace, its
+    traces start to drop kernels as out of their window, the first of a
+    trace first.  So the phases whose numbers must come from whole traces
+    run fresh."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phase", name, path], check=True)
+        with open(path) as f:
+            out = json.load(f)
+    log(f"{name} (a fresh process): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------------ build
@@ -352,12 +423,18 @@ def build_kernels(dev):
 
 # ------------------------------------------------------------ kernel checks
 
-def leaf_inputs(m, n, s, dev, gen):
+def leaf_inputs(m, n, s, dev, gen, orthogonal=True):
+    """One stacked matrix leaf's SOAP operands.  ``orthogonal=False``
+    makes the Q factors scaled Gaussians: the products' work and error
+    bounds do not depend on it, and QRs of large stacks take seconds."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
     g = randn(s, m, n)
-    ql, _ = torch.linalg.qr(randn(s, m, m))
-    qr, _ = torch.linalg.qr(randn(s, n, n))
+    if orthogonal:
+        ql, _ = torch.linalg.qr(randn(s, m, m))
+        qr, _ = torch.linalg.qr(randn(s, n, n))
+    else:
+        ql, qr = randn(s, m, m) / math.sqrt(m), randn(s, n, n) / math.sqrt(n)
     lf = torch.bmm(g, g.transpose(1, 2)) / n
     rf = torch.bmm(g.transpose(1, 2), g) / m
     return dict(g=g, ql=ql, qr=qr, L=lf, R=rf, M=randn(s, m, n),
@@ -846,7 +923,7 @@ def time_kernels(dev, gen):
                           leaves)
 
 
-def time_soap_step(what, leaves, adam_leaves):
+def time_soap_step(what, leaves, adam_leaves, reps=5):
     """One local SOAP step's kernel work, refresh excluded: the six
     products of each matrix leaf of ``leaves`` and ``adam_moments`` over
     ``adam_leaves``, timed for the kernel, the plain version and a
@@ -856,7 +933,8 @@ def time_soap_step(what, leaves, adam_leaves):
     the device time alone.  ``matmul_fused`` is timed as SOAP's step runs
     it (5 grouped launches: ``ms``, ``device_ms``) and one product per
     launch (``single_ms``, ``single_device_ms``); its library time is
-    cuBLAS's ``bmm``/``baddbmm``, one call per product."""
+    cuBLAS's ``bmm``/``baddbmm``, one call per product.  ``reps`` calls
+    a timing (``timed``)."""
     from repro_torch.kernels.ns_ortho.kernel import (
         matmul_fused, matmul_fused_group, matmul_fused_plain,
     )
@@ -910,7 +988,7 @@ def time_soap_step(what, leaves, adam_leaves):
     t, d = {}, {}
     for key, fn in (("g", grouped), ("k", gemm(matmul_fused)),
                     ("p", gemm(matmul_fused_plain)), ("l", gemm(library))):
-        t[key], d[key] = timed(fn), device_ms(fn)
+        t[key], d[key] = timed(fn, reps), device_ms(fn, floor_ms=gemm_bound)
     out["matmul_fused"] = dict(
         ms=t["g"], plain_ms=t["p"], library_ms=t["l"], bound_ms=gemm_bound,
         bound_by=gemm_by, device_ms=d["g"], plain_device_ms=d["p"],
@@ -925,7 +1003,7 @@ def time_soap_step(what, leaves, adam_leaves):
     t, d = {}, {}
     for key, fn in (("k", adam(adam_moments)),
                     ("p", adam(adam_moments_plain))):
-        t[key], d[key] = timed(fn), device_ms(fn)
+        t[key], d[key] = timed(fn, reps), device_ms(fn, floor_ms=adam_bound)
     out["adam_moments"] = dict(
         ms=t["k"], plain_ms=t["p"], library_ms=None, bound_ms=adam_bound,
         bound_by="bytes", device_ms=d["k"], plain_device_ms=d["p"],
@@ -1990,13 +2068,14 @@ def llama60m_spec():
         model_kwargs={})
 
 
-def llama_leaves(dev, gen):
-    """The 7 stacked matrix leaves of LLaMA-60M at S=2 as SOAP's step sees
-    them, (S x layers, m, n), and the step's 4 Adam-fallback leaves
-    (embedding, the two stacked norms, final norm) as g/M/V triples."""
-    mats = [((m, n, LM_S * LM_LAYERS),
-             leaf_inputs(m, n, LM_S * LM_LAYERS, dev, gen))
-            for m, n in LM_LEAVES]
+def lm_leaves(leaves, layers, vocab, d, dev, gen, orthogonal=True):
+    """An LM's 7 stacked matrix leaves ``leaves`` at S=``LM_S`` as SOAP's
+    step sees them, (S x layers, m, n), and the step's 4 Adam-fallback
+    leaves (the tied vocab x d embedding, the two stacked norms, the final
+    norm) as g/M/V triples."""
+    mats = [((m, n, LM_S * layers),
+             leaf_inputs(m, n, LM_S * layers, dev, gen, orthogonal))
+            for m, n in leaves]
 
     def triple(*shape):
         return ((shape[-2] if len(shape) > 2 else 1, shape[-1], LM_S),
@@ -2007,8 +2086,8 @@ def llama_leaves(dev, gen):
                      V=torch.rand((LM_S, *shape), generator=gen,
                                   device=dev)))
 
-    fallback = [triple(32000, 512), triple(LM_LAYERS, 512),
-                triple(LM_LAYERS, 512), triple(512)]
+    fallback = [triple(vocab, d), triple(layers, d), triple(layers, d),
+                triple(d)]
     return mats, fallback
 
 
@@ -2021,7 +2100,7 @@ def lm_kernel_checks(dev, gen):
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.utils.tree import tree_leaves
-    mats, fallback = llama_leaves(dev, gen)
+    mats, fallback = lm_leaves(LM_LEAVES, LM_LAYERS, 32000, 512, dev, gen)
     errs = {"matmul_fused": check_matmul_fused(mats),
             "adam_moments": check_adam_moments(mats + fallback)}
     shapes = [(LM_S, *p.shape) for p in tree_leaves(
@@ -2305,23 +2384,421 @@ def traffic_paths(total):
         "CPU path's")
 
 
-def main():
+# ---------------------------------------------------------- serving paths
+
+def decode_trace(params, cfg, prompt, max_len):
+    """One decode step of ``cfg`` under ``torch.profiler`` (after a
+    prefill, timed by CUDA events, and one warm step): its host wall
+    time, the device's busy time
+    (the union of its kernels', copies' and sets' intervals), the number
+    of kernels and the gaps between them on the device's timeline.  A
+    trace that holds fewer kernels than the step launched (the profiler
+    drops kernels as out of its window later in a long process) is taken
+    again, and after 3 the run fails."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    p = prompt.shape[1]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, caches = M.prefill(params, {"tokens": prompt}, cfg, max_len)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    logits, caches = M.decode_step(params, tok, caches, p, cfg)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.decode_step(params, tok, caches, p + 1, cfg)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "decode_step.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset"))
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in e.get("name", ""))
+        if spans and kernels >= launches:
+            break
+        log(f"torch.profiler kept {kernels} kernels of the step's "
+            f"{launches} launches; tracing again")
+    else:
+        raise AssertionError("torch.profiler lost kernels in 3 traces of a "
+                             "decode step")
+    busy, gaps, end = 0.0, [], spans[0][0]
+    for a, b in spans:
+        if a > end:
+            gaps.append(a - end)
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = end - spans[0][0]
+    return dict(prefill_ms=prefill_ms, wall_ms=wall_us / 1e3,
+                busy_ms=busy / 1e3,
+                busy_share=busy / wall_us, device_window_ms=window / 1e3,
+                busy_share_of_window=busy / window, device_ops=len(spans),
+                kernel_launches=launches,
+                largest_gap_ms=max(gaps, default=0.0) / 1e3,
+                gaps_ms=sum(gaps) / 1e3)
+
+
+def serve_smollm():
+    """The unreduced SmolLM-360M served through ``launch.serve.main`` on
+    the card (batch 8, prompt 256, 32 tokens, greedy): decode held against
+    a full forward, the serving driver's CUDA-event timings, the peak
+    memory, and one decode step traced.  The serving path launches none
+    of the port's kernels (the reference's attention is XLA, not
+    Pallas)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", "smollm-360m", "--batch",
+                      str(SERVE["batch"]), "--prompt-len",
+                      str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
+                      "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, prompt = out["cfg"], out["params"], out["prompt"]
+    launched = {n: w.launches for n, w in wrappers.items() if w.launches}
+    if launched:
+        raise AssertionError(f"serving launched port kernels: {launched}")
+    if M.num_params(cfg) != 361_821_120 or cfg.dtype != "float32":
+        raise AssertionError(f"served {cfg.name} at {M.num_params(cfg)} "
+                             f"parameters in {cfg.dtype}")
+    b, p, g = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    if tuple(out["tokens"].shape) != (b, g):
+        raise AssertionError(f"generated {tuple(out['tokens'].shape)}")
+    seq = torch.cat([prompt, out["tokens"][:, :-1]], dim=1)
+    with torch.inference_mode():
+        full = M.forward(params, {"tokens": seq}, cfg)[0][:, p - 1:]
+        step = torch.stack(out["logits"], dim=1)
+        err = float((full - step).abs().max())
+        greedy = torch.equal(torch.argmax(step, dim=-1), out["tokens"])
+        finite = bool(torch.isfinite(step).all())
+    if not (finite and greedy and err <= SERVE_DECODE_TOL):
+        raise AssertionError(
+            f"smollm-360m serve: decode vs forward max |err| {err:.3e} "
+            f"(bound {SERVE_DECODE_TOL}), finite {finite}, greedy {greedy}")
+    log(f"smollm-360m serve (unreduced, {M.num_params(cfg)} parameters, "
+        f"f32, batch {b}, prompt {p}, {g} tokens): decode vs full forward "
+        f"over {p + g - 1} tokens at the {g} generated positions: max |err| "
+        f"{err:.3e} (bound {SERVE_DECODE_TOL}); prefill "
+        f"{out['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms_per_token']:.3f} ms a token, "
+        f"{out['tokens_per_s']:.1f} tokens/s (CUDA events); peak memory "
+        f"{peak / 2**30:.3f} GiB; main() {wall:.2f} s")
+    with torch.inference_mode():
+        tr = decode_trace(params, cfg, prompt, p + g)
+    log(f"smollm-360m prefill again, warm: {tr['prefill_ms']:.3f} ms (CUDA "
+        "events)")
+    log(f"smollm-360m decode step traced: wall {tr['wall_ms']:.3f} ms, "
+        f"device busy {tr['busy_ms']:.3f} ms ({100 * tr['busy_share']:.1f}% "
+        f"of the wall; {100 * tr['busy_share_of_window']:.1f}% of the "
+        f"{tr['device_window_ms']:.3f} ms from its first device op to its "
+        f"last), {tr['device_ops']} device ops from "
+        f"{tr['kernel_launches']} kernel launches, gaps between them "
+        f"{tr['gaps_ms']:.3f} ms in all, the largest {tr['largest_gap_ms']:.3f}"
+        " ms")
+    return dict(prefill_ms=out["prefill_ms"],
+                decode_ms_per_token=out["decode_ms_per_token"],
+                tokens_per_s=out["tokens_per_s"], peak_bytes=peak,
+                max_abs_err=err, trace=tr)
+
+
+def tables_on_card():
+    """The six dense tables, each ``reduced()`` in f32, and a windowed
+    SmolLM (window 8) decoded past its window into ring caches: prefill
+    and decode steps on the card against the CPU port on the same weights
+    and tokens, at ``TABLE_TOL``."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import model as M
+
+    def both(cfg, seed):
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        return cpu, params_from_numpy(params_to_numpy(cpu), "cuda")
+
+    def tokens(cfg, seed, s):
+        shape = (2, s, cfg.num_codebooks) if cfg.num_codebooks > 1 \
+            else (2, s)
+        t = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+        return torch.from_numpy(t.astype(np.int64))
+
+    worst = {}
+    with torch.inference_mode():
+        for i, arch in enumerate(DENSE_TABLES):
+            cfg = configs.get_reduced(arch).replace(dtype="float32")
+            cpu, gpu = both(cfg, i)
+            toks = tokens(cfg, i, 12)
+            errs = []
+            lc, cc = M.prefill(cpu, {"tokens": toks[:, :8]}, cfg, 12)
+            lg, cg = M.prefill(gpu, {"tokens": toks[:, :8].cuda()}, cfg, 12)
+            errs.append(float((lg.cpu() - lc).abs().max()))
+            for t in range(8, 12):
+                lc, cc = M.decode_step(cpu, toks[:, t:t + 1], cc, t, cfg)
+                lg, cg = M.decode_step(gpu, toks[:, t:t + 1].cuda(), cg, t,
+                                       cfg)
+                errs.append(float((lg.cpu() - lc).abs().max()))
+            worst[arch] = max(errs)
+        cfg = configs.get_reduced("smollm-360m").replace(dtype="float32",
+                                                         **RING)
+        cpu, gpu = both(cfg, 99)
+        toks = tokens(cfg, 99, RING_STEPS)
+        cc = M.init_caches(cfg, 2, 64, ring=True)
+        cg = M.init_caches(cfg, 2, 64, ring=True, device="cuda")
+        errs = []
+        for t in range(RING_STEPS):
+            lc, cc = M.decode_step(cpu, toks[:, t:t + 1], cc, t, cfg)
+            lg, cg = M.decode_step(gpu, toks[:, t:t + 1].cuda(), cg, t, cfg)
+            errs.append(float((lg.cpu() - lc).abs().max()))
+            if not torch.equal(cg[0]["pos"].cpu(), cc[0]["pos"]):
+                raise AssertionError(f"ring decode step {t}: cache "
+                                     "positions differ from the CPU's")
+        worst[f"smollm-360m swa window 8 ring, {RING_STEPS} steps"] = \
+            max(errs)
+        if tuple(cg[0]["k"].shape[2:3]) != (RING["window"],):
+            raise AssertionError(f"ring buffer {tuple(cg[0]['k'].shape)}")
+    bad = {k: v for k, v in worst.items() if not v <= TABLE_TOL}
+    if bad:
+        raise AssertionError(f"reduced tables GPU vs CPU beyond "
+                             f"{TABLE_TOL}: {bad}")
+    log("reduced tables, prefill of 8 and 4 decode steps, GPU vs the CPU "
+        f"port (bound {TABLE_TOL}): max |err| "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+# ------------------------------------------------------- SmolLM training
+
+def smollm_spec():
+    """``lm_zipf`` at SmolLM's vocab on the unreduced SmolLM-360M (f32),
+    registered through ``register_lm_model`` as ``llama60m_spec`` does."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.scenarios.catalog import lm_zipf
+    from repro_torch.scenarios.lm import register_lm_model
+
+    def smollm_360m(seed, *, vocab, device):
+        cfg = configs.get_config("smollm-360m").replace(dtype="float32")
+        if cfg.vocab_size != vocab:
+            raise ValueError(f"vocab {vocab} != {cfg.vocab_size}")
+        gen = torch.Generator().manual_seed(seed)
+        return M.init_params(cfg, gen, device=device), cfg
+
+    register_lm_model("smollm_360m", smollm_360m)
+    return dataclasses.replace(
+        lm_zipf(**SMOL_SOURCE, name="lm_zipf_smollm360m"),
+        model="smollm_360m", model_kwargs={})
+
+
+@contextlib.contextmanager
+def omega_draws(exp):
+    """Times telemetry's host draws of its JL Omega (the misses of
+    ``obs.telemetry._omega``'s cache) while the block runs, by host clock
+    (the draw is host work), and yields {round: [draws, floats, s]}."""
+    from repro_torch.obs import telemetry
+    inner = telemetry._omega
+    drawn = collections.defaultdict(lambda: [0, 0, 0.0])
+
+    def draw(index, width, rank):
+        misses = inner.cache_info().misses
+        t0 = time.perf_counter()
+        omega = inner(index, width, rank)
+        if inner.cache_info().misses > misses:
+            d = drawn[len(exp.history) + 1]
+            d[0], d[1] = d[0] + 1, d[1] + omega.numel()
+            d[2] += time.perf_counter() - t0
+        return omega
+
+    telemetry._omega = draw
+    try:
+        yield drawn
+    finally:
+        telemetry._omega = inner
+
+
+def smollm_training(total):
+    """``fedpac_soap`` on the unreduced SmolLM-360M for ``SMOL_ROUNDS``
+    rounds: the untrained eval loss at ln V + 0.02^2 d / 2, the loss
+    falling, 5 ``matmul_fused`` and 11 ``adam_moments`` launches a step;
+    telemetry's Omega draws timed by round.  Adds the launches to
+    ``total`` and returns them."""
+    from repro_torch.api import build_experiment, materialize
+    from repro_torch.models import model as M
+    from repro_torch.optim.api import matrix_mask
+    from repro_torch.utils.tree import tree_leaves
+    t0 = time.perf_counter()
+    scn = materialize(smollm_spec(), seed=0, device="cuda")
+    cfg = scn.meta["model_cfg"]
+    mask = tree_leaves(matrix_mask(scn.params))
+    n_mat, n_fallback = sum(mask), len(mask) - sum(mask)
+    log(f"SmolLM-360M: {M.num_params(cfg)} parameters, {len(mask)} leaves "
+        f"({n_mat} stacked matrices, {n_fallback} Adam fallback); lm_zipf "
+        f"at vocab {cfg.vocab_size}, seq {SMOL_SOURCE['seq_len']}, batch "
+        f"{SMOL_SOURCE['batch']}, materialized in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (M.num_params(cfg), n_mat, n_fallback) != (361_821_120, 7, 4):
+        raise AssertionError("SmolLM-360M: want 361,821,120 parameters, 7 "
+                             "matrix and 4 fallback leaves")
+    loss0 = float(scn.eval_fn(scn.params)["eval_loss"])
+    want0 = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    if abs(loss0 - want0) > 0.05:
+        raise AssertionError(f"SmolLM-360M: initial eval loss {loss0}, want "
+                             f"ln V + s2/2 = {want0}")
+    label = "smollm-360m fedpac_soap"
+    # one client's gradient at a time (the chunked executor, chunk 1): the
+    # vmapped gradient of both clients' 16 x 256 tokens through 32 f32
+    # layers does not fit in 80 GB beside SOAP's state; the optimizer
+    # still steps the two clients' stacked leaves together
+    torch.cuda.reset_peak_memory_stats()
+    exp = metrics_on_card(build_experiment(
+        "fedpac_soap", scenario=scn, rounds=SMOL_ROUNDS, executor="chunked",
+        chunk_size=1, **LM_FL))
+    t_rounds = time.perf_counter()
+    with omega_draws(exp) as drawn:
+        hist, launches = run_experiment(label, exp,
+                                        ("matmul_fused", "adam_moments"),
+                                        LM_FINITE)
+    t_rounds = time.perf_counter() - t_rounds
+    for r, (n, floats, sec) in sorted(drawn.items()):
+        log(f"{label}: telemetry drew {n} JL Omegas in round {r} "
+            f"({floats * 4 / 2**30:.3f} GiB on the host) in {sec:.2f} s "
+            "(host clock)")
+    if set(drawn) != {1}:
+        raise AssertionError(f"{label}: telemetry drew its Omega in rounds "
+                             f"{sorted(drawn)}, want round 1 only")
+    steps = exp.fed.local_steps * SMOL_ROUNDS
+    for name, per in (("matmul_fused", 5),
+                      ("adam_moments", n_mat + n_fallback)):
+        if launches[name] != per * steps:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, want {per} x {steps} steps")
+    # the round's loss (the mean over its K steps) and the eval loss after
+    # it both below the untrained model's
+    if not loss0 > max(hist[-1]["loss"], hist[-1]["eval_loss"]):
+        raise AssertionError(f"{label}: the loss did not fall ({loss0} -> "
+                             f"{hist[-1]['loss']}, eval "
+                             f"{hist[-1]['eval_loss']})")
+    log(f"{label}: loss {loss0:.4f} at init (ln V + s2/2 = {want0:.4f}), "
+        f"{hist[-1]['loss']:.4f} over round {SMOL_ROUNDS}'s steps, eval "
+        f"{hist[-1]['eval_loss']:.4f} after it; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for name, n in launches.items():
+        total[name] += n
+    del scn, exp
+    refresh = time_smollm_refresh() / 1e3
+    t_round = (t_rounds - sum(d[2] for d in drawn.values())) / SMOL_ROUNDS
+    log(f"{label}: SOAP's QR refresh at these shapes (one a round, at step "
+        f"0) {refresh:.2f} s by CUDA events, {100 * refresh / t_round:.1f}% "
+        f"of a round's {t_round:.2f} s (the mean of {SMOL_ROUNDS}, "
+        "telemetry's Omega draws taken out)")
+    return launches
+
+
+def time_smollm_refresh():
+    """SOAP's eigenbasis refresh as a SmolLM-360M round makes it at its
+    step 0 (``optim.soap._eig_refresh`` with QR): every side of the 7
+    stacked matrix leaves at S=2, 64 factors a side (3 of 2,560^2, 9 of
+    960^2, 2 of 320^2), on Gaussian factors (one Q a size, read by every
+    side of that size).  Returns its ms by CUDA events."""
+    from repro_torch.optim.soap import _eig_refresh
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    s = LM_S * SMOL_LAYERS
+    sides = [k for m, n in SMOL_LEAVES for k in (m, n)]
+    qs = {k: torch.randn((s, k, k), generator=gen, device="cuda")
+          / math.sqrt(k) for k in set(sides)}
+    pairs = [(torch.randn((s, k, k), generator=gen, device="cuda")
+              / math.sqrt(k), qs[k]) for k in sides]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _eig_refresh(pairs, "qr")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def smollm_kernel_checks(dev, gen):
+    """``matmul_fused`` (one leaf's six products a grouped launch, 7
+    launches) and ``adam_moments`` held against their plain versions at
+    SmolLM-360M's shapes, then timed over one SOAP step.  Returns (max
+    |err| by kernel, timings)."""
+    # scaled Gaussian Q factors: 192 QRs of 2,560^2 would take seconds
+    mats, fallback = lm_leaves(SMOL_LEAVES, SMOL_LAYERS, 49152, 960, dev,
+                               gen, orthogonal=False)
+    errs = {"matmul_fused": max(check_matmul_fused([x]) for x in mats),
+            "adam_moments": check_adam_moments(mats + fallback)}
+    timings = time_soap_step(
+        f"one local step of SmolLM-360M (S={LM_S}, 7 stacked matrix leaves "
+        f"of {LM_S * SMOL_LAYERS})", [x for _, x in mats],
+        [x for _, x in mats + fallback], reps=1)
+    return errs, timings
+
+
+def smollm_kernel_rows(dev):
+    errs, timings = smollm_kernel_checks(
+        dev, torch.Generator(device=dev).manual_seed(0))
+    return dict(errs=errs, timings=timings)
+
+
+# the phases run by fresh_phase: each traces the card
+PHASES = {"serve": lambda dev: serve_smollm(),
+          "smollm_kernel_rows": smollm_kernel_rows}
+
+
+def start():
+    """The card's settings for every phase: TF32 off, the port on the
+    path.  Returns the device, or None without a card."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-
-    t_start = time.perf_counter()
-    log(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    return torch.device("cuda")
+
+
+def run_phase(name, path):
+    """``--phase NAME PATH``: phase ``name`` of ``PHASES`` alone, its
+    result written to ``path`` as JSON (``fresh_phase``)."""
+    dev = start()
+    if dev is None:
+        return 1
+    build_kernels(dev)
+    with open(path, "w") as f:
+        json.dump(PHASES[name](dev), f)
+    return 0
+
+
+def main():
+    dev = start()
+    if dev is None:
+        return 1
+    t_start = time.perf_counter()
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
     build_kernels(dev)
+    # the phases timed by whole traces, each in a young process of its own
+    fresh_phase("serve")
+    smol_rows = fresh_phase("smollm_kernel_rows")
     gen = torch.Generator(device=dev).manual_seed(0)
     leaves = ([((m, n, S_VIT), leaf_inputs(m, n, S_VIT, dev, gen))
                for m, n in VIT_LEAVES]
@@ -2356,6 +2833,14 @@ def main():
     lm_launches = lm_paths(launches)
     traffic_paths(launches)
     log(f"LM and traffic paths: {time.perf_counter() - t_lm:.1f} s")
+    t_smol = time.perf_counter()
+    tables_on_card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    smol_launches = smollm_training(launches)
+    smol_errs, smol_timings = smol_rows["errs"], smol_rows["timings"]
+    log(f"SmolLM-360M reduced tables and training: "
+        f"{time.perf_counter() - t_smol:.1f} s")
 
     meta = {
         "adam_moments": dict(
@@ -2393,6 +2878,11 @@ def main():
                      launches=lm_launches[name], max_abs_err=lm_errs[name],
                      **lm_timings[name])
                 for name in ("matmul_fused", "adam_moments")]
+    # one SmolLM-360M SOAP step, launched on its training path
+    kernels += [dict(name=f"{name}@smollm-360m", **meta[name],
+                     launches=smol_launches[name],
+                     max_abs_err=smol_errs[name], **smol_timings[name])
+                for name in ("matmul_fused", "adam_moments")]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2402,4 +2892,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(run_phase(*sys.argv[2:4]))
     sys.exit(main())

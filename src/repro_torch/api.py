@@ -84,6 +84,7 @@ def build_experiment(
     algorithm: Union[str, AlgorithmSpec],
     *,
     scenario: Optional[Union[str, ScenarioSpec, Scenario]] = None,
+    scenario_seed: Optional[int] = None,
     params=None,
     loss_fn: Optional[Callable] = None,
     client_batch_fn: Optional[Callable] = None,
@@ -101,8 +102,9 @@ def build_experiment(
     algorithm: registered name or an ``AlgorithmSpec``.
     scenario: registered name, a ``ScenarioSpec``, or a pre-materialized
       ``Scenario`` (which must match the config's ``n_clients`` and
-      device).  Names/specs materialize with the config's seed on its
-      device; when the caller names no cohort size, the scenario's own
+      device, and ``scenario_seed`` if given).  Names/specs materialize
+      with ``scenario_seed`` (default: the config's seed) on its device;
+      when the caller names no cohort size, the scenario's own
       ``n_clients`` becomes the config's.
     fed / fed_overrides: a base ``FedConfig`` and field overrides, e.g.
       ``rounds=30, device="cpu"``.  The device defaults to ``"cuda"``.
@@ -141,6 +143,9 @@ def build_experiment(
                          else resolve_scenario(scenario).n_clients)
         if fed is None and "n_clients" not in changes:
             changes["n_clients"] = scn_n_clients
+    elif scenario_seed is not None:
+        raise ValueError("scenario_seed only applies together with "
+                         "scenario=")
 
     cfg = (FedConfig(**changes) if fed is None
            else dataclasses.replace(fed, **changes))
@@ -160,9 +165,15 @@ def build_experiment(
                     f"pre-materialized scenario {scenario.spec.name!r} lives "
                     f"on {scenario.device} but the config runs on "
                     f"{cfg.device}")
+            if scenario_seed is not None and scenario_seed != scenario.seed:
+                raise ValueError(
+                    f"pre-materialized scenario {scenario.spec.name!r} was "
+                    f"built with seed={scenario.seed} but "
+                    f"scenario_seed={scenario_seed} was requested")
             scn = scenario
         else:
-            scn = materialize(scenario, seed=cfg.seed,
+            seed = scenario_seed if scenario_seed is not None else cfg.seed
+            scn = materialize(scenario, seed=seed,
                               n_clients=id_space, device=cfg.device)
         params, loss_fn, client_batch_fn, eval_fn = scn.problem()
     elif params is None or loss_fn is None or client_batch_fn is None:

@@ -155,6 +155,12 @@ class AlgorithmSpec:
                 self.upload if theta_codec is None else theta_codec, cfg),
             error_feedback=error_feedback)
 
+    def init_client_state(self, params, n_clients: int):
+        """Fresh persistent state (None for stateless algorithms)."""
+        if self.client_state is None:
+            return None
+        return self.client_state.init(params, n_clients)
+
     def comm_bytes(self, params, theta, *, svd_rank: Optional[int] = None
                    ) -> int:
         """Per-client upload bytes for one round (Table 6 accounting),

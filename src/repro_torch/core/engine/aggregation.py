@@ -34,6 +34,23 @@ class AggregationConfig:
     align: bool = True         # update the global Theta reference?
 
 
+def weighted_client_mean(tree, weights=None):
+    """Mean over the leading client axis; with weights (FedBuff) the
+    unnormalized (1/S) sum_i w_i x_i, so a stale buffer takes a smaller
+    server step.  weights=None is the uniform mean."""
+    if weights is None:
+        return tree_map(lambda x: torch.mean(x, dim=0), tree)
+    b = weights.shape[0]
+    return tree_map(lambda x: x / b, client_weighted_sum(tree, weights))
+
+
+def normalized_client_mean(tree, weights):
+    """sum_i w_i x_i / sum_i w_i over the leading client axis."""
+    w = weights.to(torch.float32)
+    denom = torch.sum(w) + 1e-12
+    return tree_map(lambda x: x / denom, client_weighted_sum(tree, w))
+
+
 def precond_mixing_weights(deltas, thetas, eps: float = 1e-8):
     """FedPM-style curvature-weighted mixing weights for the delta mean.
 
@@ -287,3 +304,22 @@ def advance_server(server: ServerState, params, theta, g_global, *,
     return ServerState(params, theta, g_global, r,
                        r if aligned else server.theta_version,
                        geom if geom is not None else server.geom)
+
+
+def aggregate_round(server: ServerState, deltas, thetas, *, lr: float,
+                    local_steps: int, server_lr: float = 1.0,
+                    weights=None) -> ServerState:
+    """Core-level weighted entry point: one ``aggregate`` -> ServerState.
+    weights=None is the synchronous uniform mean (ones); thetas=None
+    leaves the geometry reference and its version untouched."""
+    cfg = AggregationConfig(lr=lr, local_steps=local_steps,
+                            server_lr=server_lr, align=thetas is not None)
+    if weights is None:
+        lead = tree_leaves(deltas)[0]
+        weights = torch.ones((lead.shape[0],), dtype=torch.float32,
+                             device=lead.device)
+    new_params, new_theta, new_g, _ = aggregate(
+        server.params, server.theta, server.g_global, deltas, thetas,
+        weights, cfg)
+    return advance_server(server, new_params, new_theta, new_g,
+                          aligned=thetas is not None)

@@ -20,7 +20,7 @@ and returns stacked outputs.  Backends:
 The port's meshes have one device, the run's own (``mesh=None``): the
 reference's divisibility check holds trivially there, and the sharded
 backends reduce to ``vmap`` and ``chunked``.  A mesh of several devices
-(``torch.distributed`` ``DeviceMesh``) waits for ROADMAP queue 1 item 11
+(``torch.distributed`` ``DeviceMesh``) waits for ROADMAP queue 1 item 7
 and raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -75,7 +75,7 @@ def _mesh_extent(cfg: ExecutorConfig) -> int:
     if size != 1:
         raise NotImplementedError(
             f"a {size}-device mesh for the {cfg.backend!r} executor is not "
-            "ported (ROADMAP queue 1 item 11: torch.distributed DeviceMesh "
+            "ported (ROADMAP queue 1 item 7: torch.distributed DeviceMesh "
             "sharding); mesh=None runs on the run's own device")
     return 1
 

@@ -22,9 +22,12 @@ class ServerState:
     geom: Any = None         # GeometryController (or None)
 
 
-def init_server(params, geom=None) -> ServerState:
-    """Round-0 state: no Theta reference yet, g_G = 0 (f32)."""
-    g0 = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+def init_server(params, opt=None, g_dtype=torch.float32,
+                geom=None) -> ServerState:
+    """Round-0 state: no Theta reference yet, g_G = 0 in ``g_dtype``.
+    ``opt`` is accepted and ignored, as the reference ignores it."""
+    del opt
+    g0 = tree_map(lambda p: torch.zeros(p.shape, dtype=g_dtype,
                                         device=p.device), params)
     return ServerState(params=params, theta=None, g_global=g0, round=0,
                        geom=geom)

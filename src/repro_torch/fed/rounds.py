@@ -231,6 +231,15 @@ class FedConfig:
             error_feedback=self.error_feedback, wire_dtype=self.wire_dtype)
 
 
+def parse_algorithm(name: str):
+    """Legacy flag-tuple view of an algorithm string:
+    ``(optimizer_name, align, correct, light)``.  Deprecated in favour of
+    ``core.algorithms.resolve(name)``, whose spec also carries the beta
+    policy, upload codec, client-state protocol and mixing hook."""
+    spec = resolve(name)
+    return spec.optimizer, spec.align, spec.correct, spec.upload == "svd"
+
+
 def resolve_lr(fed: FedConfig, spec_or_opt: Union[AlgorithmSpec, str]
                ) -> float:
     """Explicit fed.lr wins (falsy values too), then the spec's declared

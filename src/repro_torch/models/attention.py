@@ -1,5 +1,5 @@
-"""Attention: GQA (+bias) and sliding-window / local attention, without a
-KV cache (counterpart of ``repro/models/attention.py``).
+"""Attention: GQA (+bias), sliding-window / local attention and the KV
+caches of decode (counterpart of ``repro/models/attention.py``).
 
 Written as the reference writes it, in plain tensor ops: grouped query
 heads contract against the raw KV heads (no repeat), scores in f32 scaled
@@ -9,7 +9,14 @@ is not used: it may sum in another order on the card, and the CPU parity
 would then not say what runs there.  Long sequences
 (``sq >= cfg.attn_chunk_threshold``) use the flash-style online softmax
 over KV chunks (``_chunked_sdpa``), the reference's ``lax.scan`` as a
-loop.  MLA and the KV cache (decode) wait for ROADMAP queue 1 item 11.
+loop.
+
+The decode cache of a layer is ``{"k", "v": (B, buf, Hkv, D), "pos": (B,
+buf)}``, ``pos`` -1 where nothing was written.  ``buf`` is ``max_len``, or
+``min(max_len, window)`` for a ring buffer of a windowed layer.  New K/V
+are written into the buffer in place (the reference's
+``dynamic_update_slice`` returns a new buffer), at the reference's
+clamped slot: see ``_cache_start``.  MLA waits for ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -55,8 +62,9 @@ def _causal_window_mask(q_pos, k_pos, window: int):
 
 # ================================================================ core attention
 
-def _sdpa(q, k, v, q_pos, k_pos, window: int):
-    """Plain attention. q: (B,Sq,H,D) k/v: (B,Sk,Hkv,D).
+def _sdpa(q, k, v, q_pos, k_pos, window: int, k_valid=None):
+    """Plain attention. q: (B,Sq,H,D) k/v: (B,Sk,Hkv,D); ``k_valid``
+    (B,Sk) masks the keys out of a cache that were never written.
 
     GQA contracts grouped query heads against the raw KV heads (no
     repeat of K/V)."""
@@ -67,6 +75,8 @@ def _sdpa(q, k, v, q_pos, k_pos, window: int):
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).to(torch.float32)
     scores = scores * dh ** -0.5
     mask = _causal_window_mask(q_pos, k_pos, window)[:, None, None]
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, None, None, :]
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, v)
@@ -112,16 +122,38 @@ def _chunked_sdpa(q, k, v, q_pos, k_pos, window: int, chunk: int):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
 
 
-def sdpa(q, k, v, q_pos, k_pos, cfg: ModelConfig, window: int):
-    if q.shape[1] >= cfg.attn_chunk_threshold:
+def sdpa(q, k, v, q_pos, k_pos, cfg: ModelConfig, window: int,
+         k_valid=None):
+    """The chunked path for long queries, unless a cache's ``k_valid``
+    mask is given (the reference's rule)."""
+    if q.shape[1] >= cfg.attn_chunk_threshold and k_valid is None:
         return _chunked_sdpa(q, k, v, q_pos, k_pos, window, cfg.attn_chunk)
-    return _sdpa(q, k, v, q_pos, k_pos, window)
+    return _sdpa(q, k, v, q_pos, k_pos, window, k_valid)
 
 
 # ================================================================ GQA layer
 
-def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int):
-    """x: (B,S,D) -> (B,S,D), without a cache."""
+def _cache_start(cache_index: int, s: int, buf_len: int) -> int:
+    """Where ``s`` new tokens go in a buffer of ``buf_len``: the slot
+    ``cache_index % buf_len``, clamped as ``jax.lax.dynamic_update_slice``
+    clamps its start so that the update fits, to ``buf_len - s``.  A
+    chunk that would run past the end of a ring buffer therefore lands
+    at ``buf_len - s`` and overwrites the slots before it, as in the
+    reference."""
+    return max(0, min(cache_index % buf_len, buf_len - s))
+
+
+def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int,
+                      cache=None, cache_index=None):
+    """x: (B,S,D) -> (out (B,S,D), new_cache).
+
+    Without a cache, attention over the sequence and ``new_cache`` None.
+    With one (prefill at ``cache_index`` 0, or a decode step), the new
+    K/V and positions are written into ``cache`` in place at
+    ``_cache_start`` and the queries attend to the whole buffer, masked
+    by positions (causal, windowed) and by the filled slots;
+    ``new_cache`` is ``cache`` itself.  ``cache_index`` is a host int.
+    """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -142,6 +174,31 @@ def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int):
                    mrope_sections=cfg.mrope_sections)
 
     q_pos1d = positions[..., 0] if positions.ndim == 3 else positions
-    out = sdpa(q, k, v, q_pos1d, q_pos1d, cfg, window)
+    if cache is None:
+        out = sdpa(q, k, v, q_pos1d, q_pos1d, cfg, window)
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        start = _cache_start(cache_index, s, ck.shape[1])
+        sl = slice(start, start + s)
+        ck[:, sl] = k.to(ck.dtype)
+        cv[:, sl] = v.to(cv.dtype)
+        cpos[:, sl] = q_pos1d.to(cpos.dtype).expand(b, s)
+        k_valid = (cpos <= q_pos1d[:, -1:]) & (cpos >= 0)  # filled slots
+        out = sdpa(q, ck, cv, q_pos1d, cpos, cfg, window, k_valid=k_valid)
     out = out.reshape(b, s, nq * hd)
-    return out @ p["wo"]
+    return out @ p["wo"], cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
+                    dtype, ring: bool = False, device="cpu"):
+    """An empty cache: ``max_len`` slots, or ``min(max_len, window)`` for
+    a ring buffer of a windowed layer; positions -1."""
+    hd = cfg.resolved_head_dim
+    buf = min(max_len, window) if (window and ring) else max_len
+    shape = (batch, buf, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, buf), -1, dtype=torch.int32,
+                          device=device),
+    }

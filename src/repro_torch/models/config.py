@@ -5,7 +5,7 @@ place of ``jnp_dtype``).
 The port builds the dense attention families (``attn``/``swa``/
 ``local_attn`` blocks with an MLP); the MoE, MLA, SSM and RG-LRU configs
 are here so every table loads, and their layers wait for ROADMAP queue 1
-item 11.
+items 3 (MoE), 4 (MLA) and 5 (SSM, RG-LRU).
 """
 from __future__ import annotations
 

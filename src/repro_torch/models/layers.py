@@ -9,8 +9,8 @@ and zeros for norms and biases), not its random bits: parity runs carry
 the reference's weights across (``repro_torch.convert``).  With
 ``gen=None`` it builds shapes only (tensors on the ``meta`` device), the
 counterpart of the reference's ``jax.eval_shape`` over its init.  Logical
-sharding axes are not kept: they belong to the launch layer (ROADMAP
-queue 1 item 11).
+sharding axes are not kept: they belong to the mesh layer (ROADMAP
+queue 1 item 7).
 """
 from __future__ import annotations
 

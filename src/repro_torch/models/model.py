@@ -1,5 +1,5 @@
-"""Public model API of the transformer LM: init and loss (counterpart of
-``repro/models/model.py``).
+"""Public model API of the transformer LM: init, loss, prefill and decode
+(counterpart of ``repro/models/model.py``).
 
 Batch convention (all entries optional except labels for training):
   tokens : (B, S) int, or (B, S, C) for multi-codebook (MusicGen)
@@ -12,8 +12,13 @@ The parameter tree keeps the reference's keys — ``embed/tok``
 (``embed/head`` untied), ``blocks/<g>/{pre_norm,mixer,post_norm,mlp}/…``
 stacked ``(layers, ...)`` per group, ``final_norm`` — so
 ``optim.api.is_hidden_matrix`` picks the same leaves for SOAP and Muon and
-checkpoints are keyed by the same strings.  ``param_axes``, ``prefill``,
-``decode_step`` and ``init_caches`` wait for ROADMAP queue 1 item 11.
+checkpoints are keyed by the same strings.  ``init_boxed`` and
+``param_axes`` (the logical sharding axes) wait for ROADMAP queue 1 item 7.
+
+Serving: ``prefill`` fills fresh caches with the prompt, ``decode_step``
+takes one token a sequence and writes into the caches it is given, in
+place (see ``models.transformer``).  Positions default to ``arange(S)``
+offset by ``cache_index``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Initializer, embed_tokens, init_embedding, init_norm, lm_logits,
 )
-from repro_torch.models.transformer import backbone_forward, init_blocks
+from repro_torch.models.transformer import (
+    backbone_forward, init_blocks, init_group_caches,
+)
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -60,26 +67,35 @@ def num_params(cfg: ModelConfig) -> int:
 
 # ---------------------------------------------------------------- forward
 
-def _positions_for(cfg: ModelConfig, batch: int, seq: int, device):
-    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+def _positions_for(cfg: ModelConfig, batch: int, seq: int, device,
+                   offset=0):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
+        + offset
     pos = pos.expand(batch, seq)
     if cfg.mrope_sections is not None:
         pos = pos[..., None].expand(batch, seq, 3)
     return pos
 
 
-def forward(params, batch, cfg: ModelConfig, *, remat: bool = False):
-    """Returns (logits, None, aux_loss)."""
+def forward(params, batch, cfg: ModelConfig, *, caches=None,
+            cache_index=None, remat: bool = False):
+    """Returns (logits, new_caches, aux_loss); ``new_caches`` is
+    ``caches``, written in place, or None without caches."""
     if batch.get("embeds") is not None:
         x = batch["embeds"].to(cfg.torch_dtype)
     else:
         x = embed_tokens(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
+    if cache_index is not None:
+        cache_index = int(cache_index)
     positions = batch.get("positions")
     if positions is None:
-        positions = _positions_for(cfg, b, s, x.device)
-    h, _, aux = backbone_forward(params, x, positions, cfg, remat=remat)
-    return lm_logits(params["embed"], h, cfg), None, aux
+        positions = _positions_for(cfg, b, s, x.device,
+                                   offset=cache_index or 0)
+    h, new_caches, aux = backbone_forward(
+        params, x, positions, cfg, caches=caches, cache_index=cache_index,
+        remat=remat)
+    return lm_logits(params["embed"], h, cfg), new_caches, aux
 
 
 def cross_entropy(logits, labels, loss_mask: Optional[torch.Tensor] = None):
@@ -99,3 +115,38 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
     logits, _, aux = forward(params, batch, cfg, remat=remat)
     return cross_entropy(logits, batch["labels"],
                          batch.get("loss_mask")) + aux
+
+
+# ---------------------------------------------------------------- serving
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                ring: bool = False, device="cpu"):
+    """Empty caches stacked per group (leading 'layers' axis), in
+    ``cfg.dtype`` on ``device``; ``ring=True`` bounds a windowed layer's
+    buffer to its window (long decode)."""
+    return init_group_caches(cfg, batch, max_len, cfg.torch_dtype,
+                             ring=ring, device=device)
+
+
+def prefill(params, batch, cfg: ModelConfig, max_len: int):
+    """Run the prompt through the model into fresh linear caches of
+    ``max_len`` slots (written from index 0), on the params' device.
+    Returns (last_token_logits, caches)."""
+    if batch.get("embeds") is not None:
+        b = batch["embeds"].shape[0]
+    else:
+        b = batch["tokens"].shape[0]
+    caches = init_caches(cfg, b, max_len,
+                         device=params["final_norm"]["scale"].device)
+    logits, caches, _ = forward(params, batch, cfg, caches=caches,
+                                cache_index=0)
+    return logits[:, -1], caches
+
+
+def decode_step(params, tokens, caches, index, cfg: ModelConfig):
+    """One decode step.  tokens: (B, 1[, C]); index: the position of the
+    new token (a host int or a 0-d tensor).  Writes the new K/V into
+    ``caches`` in place and returns (logits (B, [C,] V), caches)."""
+    logits, caches, _ = forward(params, {"tokens": tokens}, cfg,
+                                caches=caches, cache_index=index)
+    return logits[:, -1], caches

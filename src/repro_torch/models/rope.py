@@ -60,3 +60,16 @@ def apply_rope(
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     return torch.cat([_rotate(x_rot, cos, sin), x_pass], dim=-1)
 
+
+
+def default_positions(batch: int, seq: int, *, mrope: bool = False,
+                      offset=0):
+    """``arange(seq) + offset`` broadcast to (B, S) int32, or to (B, S, 3)
+    under M-RoPE; on ``offset``'s device when it is a tensor."""
+    device = offset.device if isinstance(offset, torch.Tensor) else None
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] \
+        + offset
+    pos = pos.to(torch.int32).expand(batch, seq)
+    if mrope:
+        pos = pos[..., None].expand(batch, seq, 3)
+    return pos

@@ -25,8 +25,12 @@ port draws it once per (leaf index, width, device) from a CPU generator
 seeded with ``_SKETCH_KEY + i`` and moves it to the device
 (``sketch_omega``), so a GPU and a CPU run project through the same Omega;
 the parity tests replace ``sketch_omega`` with the reference's draws.
-The cache holds 8 floats per element of a client's Theta (651 MB on the
-card for ViT-Tiny SOAP's 20,348,928-float Theta).
+The draws are cached on the host: 8 floats per element of a client's
+Theta (651 MB for ViT-Tiny SOAP's 20,348,928-float Theta, 27 GiB for
+SmolLM-360M's 901,120,000).  A card keeps copies up to
+``DEVICE_OMEGA_BYTES`` in all; a projection beyond that crosses to the
+card for each use and is freed after it, so the sketch never holds a
+transformer's projections on the card beside its training state.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from repro_torch.utils.tree import (
 STALENESS_BINS = 8       # last bin catches s >= STALENESS_BINS - 1
 SKETCH_RANK = 8
 _SKETCH_KEY = 0xD81F7    # fixed: every round projects through the same Omega
+DEVICE_OMEGA_BYTES = 2 << 30   # projections kept on a card, in all
+_on_device: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,15 +72,28 @@ def staleness_histogram(staleness, bins: int = STALENESS_BINS):
 
 def sketch_omega(index: int, width: int, rank: int, device):
     """Leaf ``index``'s fixed (width, rank) Gaussian projection, scaled by
-    1/sqrt(rank); drawn once per (index, width, rank, device)."""
-    return _omega(index, width, rank, torch.device(device))
+    1/sqrt(rank); drawn once per (index, width, rank) on the host, and
+    kept on another device while its copies there fit in
+    ``DEVICE_OMEGA_BYTES``."""
+    device = torch.device(device)
+    omega = _omega(index, width, rank)
+    if device.type == "cpu":
+        return omega
+    key = (index, width, rank, device)
+    kept = _on_device.get(key)
+    if kept is not None:
+        return kept
+    kept = omega.to(device)
+    if (sum(x.nbytes for x in _on_device.values()) + kept.nbytes
+            <= DEVICE_OMEGA_BYTES):
+        _on_device[key] = kept
+    return kept
 
 
 @functools.lru_cache(maxsize=None)
-def _omega(index: int, width: int, rank: int, device: torch.device):
+def _omega(index: int, width: int, rank: int):
     gen = torch.Generator().manual_seed(_SKETCH_KEY + index)
-    omega = torch.randn((width, rank), generator=gen)
-    return (omega / math.sqrt(rank)).to(device)
+    return torch.randn((width, rank), generator=gen) / math.sqrt(rank)
 
 
 def client_geom_dist(thetas, s: int, rank: int = SKETCH_RANK, *, device):

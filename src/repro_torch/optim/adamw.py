@@ -56,4 +56,5 @@ def make(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return {"m": tree_map(leaf, state["m"], theta["m"]),
                 "v": tree_map(leaf, state["v"], theta["v"])}
 
-    return LocalOptimizer("adamw", init, update, get_precond, set_precond)
+    return LocalOptimizer("adamw", init, update, get_precond, set_precond,
+                          precond_multiplier=2.0)

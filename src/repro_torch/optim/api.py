@@ -35,6 +35,8 @@ class LocalOptimizer:
     set_precond: Callable[[Any, Any], Any]
     # True if the client loop must supply a Hutchinson diag-Hessian estimate
     needs_hessian: bool = False
+    # Fraction/structure of Theta uploaded per round, for comm accounting
+    precond_multiplier: float = 1.0
 
 
 _NON_MATRIX_TOKENS = ("embed", "tok", "head", "norm", "bias", "scale",

@@ -96,4 +96,5 @@ def make(b1: float = 0.9, ns_steps: int = 5, weight_decay: float = 0.0,
             return th.to(mm.dtype).expand(mm.shape)
         return dict(state, m=tree_map(leaf, state["m"], theta["m"]))
 
-    return LocalOptimizer("muon", init, update, get_precond, set_precond)
+    return LocalOptimizer("muon", init, update, get_precond, set_precond,
+                          precond_multiplier=1.0)

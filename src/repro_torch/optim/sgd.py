@@ -44,4 +44,5 @@ def make(momentum: float = 0.0, weight_decay: float = 0.0) -> LocalOptimizer:
         return {"m": tree_map(lambda mm, th: th.to(mm.dtype).expand(mm.shape),
                               state["m"], theta["m"])}
 
-    return LocalOptimizer("sgd", init, update, get_precond, set_precond)
+    return LocalOptimizer("sgd", init, update, get_precond, set_precond,
+                          precond_multiplier=1.0 if momentum else 0.0)

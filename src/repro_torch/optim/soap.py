@@ -201,4 +201,5 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         mat = tree_map(leaf, state["mat"], theta["LR"], is_leaf=_is_state_leaf)
         return dict(state, mat=mat)
 
-    return LocalOptimizer("soap", init, update, get_precond, set_precond)
+    return LocalOptimizer("soap", init, update, get_precond, set_precond,
+                          precond_multiplier=2.0)

@@ -64,4 +64,4 @@ def make(b1: float = 0.9, b2: float = 0.99, eps: float = 1e-12,
         return dict(state, h=h)
 
     return LocalOptimizer("sophia", init, update, get_precond, set_precond,
-                          needs_hessian=True)
+                          needs_hessian=True, precond_multiplier=1.0)

@@ -21,6 +21,8 @@ import repro_torch.scenarios.vision  # noqa: F401
 from repro_torch.scenarios.registry import register
 from repro_torch.scenarios.spec import PartitionSpec, ScenarioSpec
 
+DIR01 = PartitionSpec("dirichlet", alpha=0.1)
+
 
 def cifar_like(*, model: str = "cnn", n: int = 3000, image_size: int = 12,
                n_classes: int = 8, alpha: Optional[float] = 0.1,

@@ -138,6 +138,14 @@ class ScenarioSpec:
             raise ValueError(
                 f"batch_size must be >= 1, got {self.batch_size}")
 
+    def with_partition(self, partition: PartitionSpec,
+                       suffix: Optional[str] = None) -> "ScenarioSpec":
+        """Derived variant of the same task under another partition: an
+        unregistered spec whose name gains the partition tag."""
+        return dataclasses.replace(
+            self, partition=partition,
+            name=f"{self.name}@{suffix or partition.tag()}")
+
     def variant(self, suffix: str, **changes) -> "ScenarioSpec":
         """Renamed derived spec with field overrides."""
         return dataclasses.replace(self, name=f"{self.name}_{suffix}",

@@ -10,6 +10,8 @@ across (``repro_torch.convert``).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from repro_torch.data import make_image_classification, partition_stats
@@ -48,6 +50,13 @@ def _make_vit(seed: int, *, image_size: int, n_classes: int, device,
 VISION_MODELS = {"cnn": _make_cnn, "vit": _make_vit}
 
 
+def register_vision_model(name: str, factory: Callable) -> Callable:
+    """Add a vision backbone: ``factory(seed, image_size=, n_classes=,
+    device=, **model_kwargs) -> (params, apply_fn)``."""
+    VISION_MODELS[name] = factory
+    return factory
+
+
 def materialize_vision(spec: ScenarioSpec, seed: int, n_clients: int,
                        device) -> Scenario:
     kw = check_source_kwargs(spec, SOURCE_DEFAULTS)
@@ -56,7 +65,8 @@ def materialize_vision(spec: ScenarioSpec, seed: int, n_clients: int,
     if spec.model not in VISION_MODELS:
         raise ValueError(
             f"scenario {spec.name!r}: unknown vision model {spec.model!r} "
-            f"(want one of {sorted(VISION_MODELS)})")
+            f"(want one of {sorted(VISION_MODELS)}); add backbones via "
+            "scenarios.vision.register_vision_model")
 
     X_all, y_all = make_image_classification(
         n + n_eval, image_size=image_size, n_classes=n_classes, seed=seed,

@@ -101,3 +101,61 @@ def tree_dot(a, b):
     """sum over corresponding leaves of <a, b> (the reference's ``vdot``)."""
     return sum(torch.sum(x * y) for x, y in zip(tree_leaves(a),
                                                  tree_leaves(b)))
+
+
+# ------------------------------------------------ leaf-wise arithmetic
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(s, a, b):
+    """s*a + b, leaf-wise."""
+    return tree_map(lambda x, y: s * x + y, a, b)
+
+
+def tree_lerp(a, b, t):
+    """(1-t)*a + t*b, leaf-wise."""
+    return tree_map(lambda x, y: (1.0 - t) * x + t * y, a, b)
+
+
+def tree_mean(trees):
+    """Mean of a list of trees (same structure), summed in list order."""
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = tree_add(acc, t)
+    return tree_scale(acc, 1.0 / len(trees))
+
+
+def tree_stack_mean(tree):
+    """Mean over the leading (client) axis of every leaf."""
+    return tree_map(lambda x: torch.mean(x, dim=0), tree)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_size(a) -> int:
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(a))
+
+
+def tree_cast(a, dtype):
+    """Floating leaves to ``dtype``; integer and bool leaves unchanged."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
+
+
+def global_norm(a):
+    return torch.sqrt(tree_norm_sq(a))

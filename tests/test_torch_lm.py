@@ -169,8 +169,12 @@ def test_configs_match_reference():
             assert model.num_params(g) == jax_model.num_params(w)
     # LLaMA-60M at full width: 8 layers of d 512, d_ff 1376, tied vocab
     assert model.num_params(configs.get_config("llama-60m")) == 41_689_600
-    for name in configs.ASSIGNED:
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # the assigned tables whose layers are still to come raise, naming the
+    # ROADMAP queue 1 item that brings them (tests/test_torch_arch.py holds
+    # the six dense tables)
+    for name, item in (("mixtral-8x22b", 3), ("deepseek-v2-236b", 4),
+                       ("falcon-mamba-7b", 5), ("recurrentgemma-2b", 5)):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             configs.get_config(name)
 
 
@@ -196,7 +200,7 @@ def test_param_tree_and_matrix_leaves():
     windowed = _cfgs("windowed")[1]
     assert transformer.layer_groups(windowed) == \
         [(0, 2, ("swa", False)), (2, 1, ("attn", False))]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         transformer.init_layer(None, windowed, "mamba", False)
     p = model.init_params(_cfgs("lm_zipf")[1], torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),

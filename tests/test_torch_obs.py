@@ -185,6 +185,22 @@ def test_port_omega_is_cached_and_device_shared():
                        / float(np.sqrt(8)))
 
 
+def test_port_omega_copies_on_a_device_are_bounded(monkeypatch):
+    """Copies on a device other than the CPU are kept while they fit in
+    ``DEVICE_OMEGA_BYTES``; a projection beyond it is copied for each use
+    (the meta device stands in for a card)."""
+    monkeypatch.setattr(obs_telemetry, "_on_device", {})
+    monkeypatch.setattr(obs_telemetry, "DEVICE_OMEGA_BYTES", 40 * 8 * 4)
+    a = obs_telemetry.sketch_omega(5, 40, 8, "meta")
+    assert a.device.type == "meta" and a.shape == (40, 8)
+    assert obs_telemetry.sketch_omega(5, 40, 8, "meta") is a
+    b = obs_telemetry.sketch_omega(6, 40, 8, "meta")
+    assert b.shape == (40, 8)
+    assert obs_telemetry.sketch_omega(6, 40, 8, "meta") is not b
+    assert list(obs_telemetry._on_device) == [(5, 40, 8,
+                                               torch.device("meta"))]
+
+
 # ------------------------------------------------------------- drift views
 
 def test_drift_views_match_reference():

@@ -488,7 +488,7 @@ def test_multi_device_mesh_is_not_ported():
             return 4
 
     for backend in ("shard_map", "sharded"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             make_cohort_executor(ExecutorConfig(backend=backend, mesh=Mesh()))
     one = make_cohort_executor(ExecutorConfig(backend="sharded", mesh=1))
     assert torch.equal(one(torch.sin, torch.ones(3)), torch.sin(
