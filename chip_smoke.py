@@ -75,13 +75,25 @@ held against a full forward over the prompt and the generated tokens, its
 prefill and decode timed with CUDA events and one decode step traced
 (device-busy share); and ``matmul_fused``/``adam_moments`` held against
 their plain versions and timed over one SOAP step at SmolLM-360M's
-shapes (the kernels line's ``*@smollm-360m`` rows).  Last come the six
-dense tables ``reduced()`` (prefill and 4
-decode steps) and a windowed SmolLM decoded 20 steps into ring caches,
-each against the CPU port on the same weights; then ``fedpac_soap`` on
-the unreduced SmolLM-360M on ``lm_zipf`` at vocab 49,152 for two rounds
-(5 ``matmul_fused`` and 11 ``adam_moments`` a step, the untrained loss at
-its expectation, the loss falling).
+shapes (the kernels line's ``*@smollm-360m`` rows).  Four more fresh
+processes serve the rest of the model zoo the same way, f32 at full
+width: Falcon-Mamba-7B (7,272,665,088 parameters) and RecurrentGemma-2B
+(2,894,574,080) unreduced through ``launch.serve.main``, and
+Mixtral-8x22B and DeepSeek-V2-236B cut to 2 layers (5,410,781,184 and
+5,193,528,320: the full tables do not fit one card) through the same
+prefill/decode loop; with a MoE the routing of the decode path and of
+the full forward is recorded and its flips counted.  Last come the four
+tables of the MoE, MLA, Mamba and RG-LRU layers ``reduced()`` (prefill
+and 4 decode steps) and the ring-cache long decodes of Mixtral,
+Falcon-Mamba and RecurrentGemma (window 8, 20 steps) against the CPU
+port, ``fedpac_soap`` 2 rounds on reduced Mixtral and Falcon-Mamba on
+``lm_zipf`` against the CPU path (5 ``matmul_fused`` and 13
+``adam_moments`` a step); then the six dense tables ``reduced()``
+(prefill and 4 decode steps) and a windowed SmolLM decoded 20 steps into
+ring caches, each against the CPU port on the same weights; then
+``fedpac_soap`` on the unreduced SmolLM-360M on ``lm_zipf`` at vocab
+49,152 for two rounds (5 ``matmul_fused`` and 11 ``adam_moments`` a
+step, the untrained loss at its expectation, the loss falling).
 
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
@@ -282,6 +294,49 @@ SMOL_ROUNDS = 2
 SMOL_LAYERS = 32
 SMOL_LEAVES = ([(960, 960), (960, 320), (960, 320), (960, 960)]
                + [(960, 2560)] * 2 + [(2560, 960)])
+# the rest of the model zoo served at full width (f32, TF32 off), batch 8,
+# prompt 256, 32 greedy tokens, each in a fresh process: Falcon-Mamba-7B
+# and RecurrentGemma-2B unreduced through launch.serve.main; Mixtral-8x22B
+# and DeepSeek-V2-236B at full width cut to 2 layers (the full 141 B and
+# 236 B parameters do not fit one card; DeepSeek's 2 are its dense layer
+# 0 and one MoE layer of 160 experts and 2 shared), served by the same
+# prefill/decode_step loop.  Parameters by the reference's count.
+ZOO_SERVE = (("falcon-mamba-7b", None, 7_272_665_088),
+             ("recurrentgemma-2b", None, 2_894_574_080),
+             ("mixtral-8x22b", 2, 5_410_781_184),
+             ("deepseek-v2-236b", 2, 5_193_528_320))
+# decode against the full forward: SmolLM's 1e-3 (logits of standard
+# deviation ~1 here: untied heads of fan-in scale, RecurrentGemma's tied
+# 0.02 sqrt 2560); the scans of Falcon-Mamba's forward over 287 tokens
+# run in chunks of 41 where its prefill ran 2 of 128, another association
+# of f32 sums of the same terms, ~1e-6 relative
+# a routing flip: a position whose top-k experts differ between the
+# decode path (prefill, then the steps) and the full forward in any MoE
+# layer, where the k-th and (k+1)-th router probabilities lie within
+# roundoff.  Expected < 0.1 a table (router logits of standard deviation
+# ~1.5, top-k gaps ~0.1 wide, ~1e-6 apart), allowed 2 a table; the logits
+# bound is held on every position of a sequence before its first flip (a
+# flip at one position reaches later ones through attention)
+ZOO_FLIP_BOUND = 2
+# the four tables reduced (RecurrentGemma at 3 layers, so that its
+# local_attn layer is in), prefill 8 + 4 decode steps, and the ring-cache
+# long decodes of the reference's test_ring_cache_long_decode (window 8,
+# 20 steps), GPU vs the CPU port at TABLE_TOL, flips counted as above
+ZOO_TABLES = {"mixtral-8x22b": {}, "deepseek-v2-236b": {},
+              "falcon-mamba-7b": {}, "recurrentgemma-2b": {"layers": 3}}
+ZOO_RING = ("mixtral-8x22b", "falcon-mamba-7b", "recurrentgemma-2b")
+# fedpac_soap on lm_zipf (vocab 256, seq 32, batch 8, 8 clients, K=5, the
+# tiny lm_zipf check's settings and tolerances) with reduced Mixtral
+# (d_model 256, 2 layers, 4 experts top-2) and reduced Falcon-Mamba (d_model
+# 256, 2 layers), 2 rounds, GPU vs the CPU path.  adam_moments launches a
+# step = the leaves (one a leaf, rotated or fallback): Mixtral 13 (7
+# matrices: wq wk wv wo and the (2, 4, 256, 256) expert stacks, read as
+# (2048, 256) conv-style matrices; 6 fallback: tok, head, two norms, the
+# 4-wide router, the final norm); Falcon-Mamba 13 (4 matrices: in_proj,
+# x_proj, dt_proj, out_proj; 9 fallback: tok, head, pre_norm, conv_w,
+# conv_b, dt_bias, A_log, D, the final norm)
+ZOO_TRAIN = {"mixtral-8x22b": 13, "falcon-mamba-7b": 13}
+ZOO_ROUNDS = 2
 
 
 def log(*a):
@@ -2451,60 +2506,176 @@ def decode_trace(params, cfg, prompt, max_len):
                 gaps_ms=sum(gaps) / 1e3)
 
 
-def serve_smollm():
-    """The unreduced SmolLM-360M served through ``launch.serve.main`` on
-    the card (batch 8, prompt 256, 32 tokens, greedy): decode held against
-    a full forward, the serving driver's CUDA-event timings, the peak
-    memory, and one decode step traced.  The serving path launches none
-    of the port's kernels (the reference's attention is XLA, not
-    Pallas)."""
+@contextlib.contextmanager
+def routing():
+    """Records the top-k experts (sorted) of every MoE layer's call while
+    the block runs, as a list of (B, S, k) host tensors in call order
+    (the router recomputed on the layer's input: a host read a call, so
+    never inside a timed run)."""
+    from repro_torch.models import moe
+    inner = moe.moe_forward
+    calls = []
+
+    def spy(p, x, cfg):
+        _, _, topi = moe._route(p, x.reshape(-1, x.shape[-1]), cfg)
+        calls.append(torch.sort(topi, dim=-1).values.reshape(
+            *x.shape[:2], -1).cpu())
+        return inner(p, x, cfg)
+
+    moe.moe_forward = spy
+    try:
+        yield calls
+    finally:
+        moe.moe_forward = inner
+
+
+def routing_path(calls, n_moe):
+    """Each MoE layer's experts over the positions of a run whose forwards
+    (a prefill and decode steps, or one full forward) each made ``n_moe``
+    calls: a list of (B, S, k), one a layer."""
+    return [torch.cat(calls[layer::n_moe], dim=1) for layer in range(n_moe)]
+
+
+def flips(path_a, path_b):
+    """(B, S) bool: the positions whose experts differ in any MoE layer
+    between two runs' routing paths."""
+    return torch.stack([(a != b).any(dim=-1) for a, b in
+                        zip(path_a, path_b)]).any(dim=0)
+
+
+def before_first_flip(flipped):
+    """(B, S) bool: the positions of each sequence before its first
+    flip."""
+    return torch.cumsum(flipped.to(torch.int64), dim=1) == 0
+
+
+def serve_loop(arch, layers):
+    """``launch.serve.main``'s prefill and greedy decode for ``arch`` at
+    full width cut to ``layers`` layers (serve.py takes no depth, as the
+    reference's does not), on weights and a prompt from a card generator;
+    the same dict as ``main``."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    cfg = configs.get_config(arch).replace(num_layers=layers,
+                                           dtype="float32")
+    b, p, g = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen,
+                           device="cuda")
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        marks[0].record()
+        logits, caches = M.prefill(params, {"tokens": prompt}, cfg, p + g)
+        marks[1].record()
+        toks = torch.argmax(logits, dim=-1)[:, None]
+        generated, step_logits = [toks], [logits]
+        marks[2].record()
+        for i in range(g - 1):
+            logits, caches = M.decode_step(params, toks, caches, p + i, cfg)
+            toks = torch.argmax(logits, dim=-1)[:, None]
+            generated.append(toks)
+            step_logits.append(logits)
+        marks[3].record()
+    marks[3].synchronize()
+    decode_ms = marks[2].elapsed_time(marks[3])
+    return dict(tokens=torch.cat(generated, dim=1), logits=step_logits,
+                prefill_ms=marks[0].elapsed_time(marks[1]),
+                decode_ms=decode_ms, decode_ms_per_token=decode_ms / (g - 1),
+                tokens_per_s=b * (g - 1) / (decode_ms / 1e3), cfg=cfg,
+                params=params, prompt=prompt)
+
+
+def serve_table(arch, n_params, layers=None):
+    """``arch`` served on the card (batch 8, prompt 256, 32 tokens,
+    greedy): unreduced through ``launch.serve.main``, or at full width
+    cut to ``layers`` layers through ``serve_loop``.  Decode held against
+    a full forward over the prompt and the generated tokens (with a MoE,
+    the routing of both paths recorded and its flips counted), the CUDA-
+    event timings, the peak memory, and one decode step traced.  Serving
+    launches none of the port's kernels (the reference's attention,
+    scans and expert products are XLA, not Pallas)."""
+    from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.models.transformer import layer_groups
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = serve.main(["--arch", "smollm-360m", "--batch",
-                      str(SERVE["batch"]), "--prompt-len",
-                      str(SERVE["prompt"]), "--gen", str(SERVE["gen"]),
-                      "--device", "cuda"])
+    if layers is None:
+        out = serve.main(["--arch", arch, "--batch", str(SERVE["batch"]),
+                          "--prompt-len", str(SERVE["prompt"]), "--gen",
+                          str(SERVE["gen"]), "--device", "cuda"])
+    else:
+        out = serve_loop(arch, layers)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     cfg, params, prompt = out["cfg"], out["params"], out["prompt"]
     launched = {n: w.launches for n, w in wrappers.items() if w.launches}
     if launched:
         raise AssertionError(f"serving launched port kernels: {launched}")
-    if M.num_params(cfg) != 361_821_120 or cfg.dtype != "float32":
+    if M.num_params(cfg) != n_params or cfg.dtype != "float32":
         raise AssertionError(f"served {cfg.name} at {M.num_params(cfg)} "
-                             f"parameters in {cfg.dtype}")
+                             f"parameters in {cfg.dtype}, want {n_params}")
     b, p, g = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     if tuple(out["tokens"].shape) != (b, g):
         raise AssertionError(f"generated {tuple(out['tokens'].shape)}")
     seq = torch.cat([prompt, out["tokens"][:, :-1]], dim=1)
+    n_moe = sum(n for _, n, (_, is_moe) in layer_groups(cfg) if is_moe)
     with torch.inference_mode():
-        full = M.forward(params, {"tokens": seq}, cfg)[0][:, p - 1:]
         step = torch.stack(out["logits"], dim=1)
-        err = float((full - step).abs().max())
+        with routing() as fwd_calls:
+            full = M.forward(params, {"tokens": seq}, cfg)[0][:, p - 1:]
+        n_flips, kept = 0, torch.ones((b, g), dtype=torch.bool)
+        if n_moe:
+            # the decode path again, teacher-forced on its own tokens,
+            # with the routing recorded (the timed run recorded nothing)
+            with routing() as dec_calls:
+                lg, caches = M.prefill(params, {"tokens": prompt}, cfg,
+                                       p + g)
+                again = [lg]
+                for i in range(g - 1):
+                    lg, caches = M.decode_step(
+                        params, out["tokens"][:, i:i + 1], caches, p + i,
+                        cfg)
+                    again.append(lg)
+            if not torch.equal(torch.stack(again, dim=1), step):
+                raise AssertionError(f"{arch}: the replayed decode differs "
+                                     "from the served one")
+            flipped = flips(routing_path(dec_calls, n_moe),
+                            routing_path(fwd_calls, n_moe))
+            n_flips = int(flipped.sum())
+            kept = before_first_flip(flipped)[:, p - 1:]
+        diff = (full - step).abs().amax(dim=-1).cpu()
+        err = float(diff[kept].max())
         greedy = torch.equal(torch.argmax(step, dim=-1), out["tokens"])
         finite = bool(torch.isfinite(step).all())
-    if not (finite and greedy and err <= SERVE_DECODE_TOL):
+    if not (finite and greedy and err <= SERVE_DECODE_TOL
+            and n_flips <= ZOO_FLIP_BOUND):
         raise AssertionError(
-            f"smollm-360m serve: decode vs forward max |err| {err:.3e} "
-            f"(bound {SERVE_DECODE_TOL}), finite {finite}, greedy {greedy}")
-    log(f"smollm-360m serve (unreduced, {M.num_params(cfg)} parameters, "
-        f"f32, batch {b}, prompt {p}, {g} tokens): decode vs full forward "
-        f"over {p + g - 1} tokens at the {g} generated positions: max |err| "
-        f"{err:.3e} (bound {SERVE_DECODE_TOL}); prefill "
+            f"{arch} serve: decode vs forward max |err| {err:.3e} (bound "
+            f"{SERVE_DECODE_TOL}), {n_flips} routing flips (bound "
+            f"{ZOO_FLIP_BOUND}), finite {finite}, greedy {greedy}")
+    what = ("unreduced" if layers is None else f"full width, cut to "
+            f"{layers} of {configs.get_config(arch).num_layers} layers")
+    moe_note = (f"; {n_flips} routing flips of {b * (p + g - 1)} positions "
+                f"x {n_moe} MoE layers, logits held at "
+                f"{int(kept.sum())} of {b * g}") if n_moe else ""
+    log(f"{arch} serve ({what}, {M.num_params(cfg)} parameters, f32, batch "
+        f"{b}, prompt {p}, {g} tokens): decode vs full forward over "
+        f"{p + g - 1} tokens at the {g} generated positions: max |err| "
+        f"{err:.3e} (bound {SERVE_DECODE_TOL}){moe_note}; prefill "
         f"{out['prefill_ms']:.3f} ms, decode "
         f"{out['decode_ms_per_token']:.3f} ms a token, "
         f"{out['tokens_per_s']:.1f} tokens/s (CUDA events); peak memory "
-        f"{peak / 2**30:.3f} GiB; main() {wall:.2f} s")
+        f"{peak / 2**30:.3f} GiB; served in {wall:.2f} s")
     with torch.inference_mode():
         tr = decode_trace(params, cfg, prompt, p + g)
-    log(f"smollm-360m prefill again, warm: {tr['prefill_ms']:.3f} ms (CUDA "
+    log(f"{arch} prefill again, warm: {tr['prefill_ms']:.3f} ms (CUDA "
         "events)")
-    log(f"smollm-360m decode step traced: wall {tr['wall_ms']:.3f} ms, "
+    log(f"{arch} decode step traced: wall {tr['wall_ms']:.3f} ms, "
         f"device busy {tr['busy_ms']:.3f} ms ({100 * tr['busy_share']:.1f}% "
         f"of the wall; {100 * tr['busy_share_of_window']:.1f}% of the "
         f"{tr['device_window_ms']:.3f} ms from its first device op to its "
@@ -2515,7 +2686,12 @@ def serve_smollm():
     return dict(prefill_ms=out["prefill_ms"],
                 decode_ms_per_token=out["decode_ms_per_token"],
                 tokens_per_s=out["tokens_per_s"], peak_bytes=peak,
-                max_abs_err=err, trace=tr)
+                max_abs_err=err, routing_flips=n_flips, trace=tr)
+
+
+def serve_smollm():
+    """The unreduced SmolLM-360M served through ``launch.serve.main``."""
+    return serve_table("smollm-360m", 361_821_120)
 
 
 def tables_on_card():
@@ -2580,6 +2756,149 @@ def tables_on_card():
         f"port (bound {TABLE_TOL}): max |err| "
         + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return worst
+
+
+def zoo_tables_on_card():
+    """The four tables of the MoE, MLA, Mamba and RG-LRU layers
+    ``reduced()`` in f32 (RecurrentGemma at 3 layers, its local_attn
+    layer included): prefill of 8 and 4 decode steps, then the ring-cache
+    long decodes of Mixtral, Falcon-Mamba and RecurrentGemma (window 8,
+    20 steps from index 0), on the card against the CPU port on the same
+    weights and tokens at ``TABLE_TOL``.  The routing of every MoE layer
+    is recorded on both devices and its flips counted (at most
+    ``ZOO_FLIP_BOUND`` a run, the logits held before a sequence's first
+    flip); a ring's cache positions must be equal."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import layer_groups
+
+    def run(params, cfg, toks, dev, ring):
+        """(logits (B, positions, V) on the host, routing calls, caches):
+        from index 0 into ring caches, or a prefill of 8 then 4 steps."""
+        toks = toks.to(dev)
+        with routing() as calls:
+            if ring:
+                caches = M.init_caches(cfg, 2, 64, ring=True, device=dev)
+                out, first = [], 0
+            else:
+                lg, caches = M.prefill(params, {"tokens": toks[:, :8]}, cfg,
+                                       12)
+                out, first = [lg], 8
+            for t in range(first, toks.shape[1]):
+                lg, caches = M.decode_step(params, toks[:, t:t + 1], caches,
+                                           t, cfg)
+                out.append(lg)
+        return torch.stack(out, dim=1).cpu(), calls, caches
+
+    worst, flipped_total = {}, {}
+    runs = ([(arch, False) for arch in ZOO_TABLES]
+            + [(arch, True) for arch in ZOO_RING])
+    with torch.inference_mode():
+        for i, (arch, ring) in enumerate(runs):
+            cfg = configs.get_reduced(arch, **ZOO_TABLES[arch]).replace(
+                dtype="float32")
+            if ring and cfg.window:
+                cfg = cfg.replace(window=8)
+            cpu = M.init_params(cfg, torch.Generator().manual_seed(40 + i))
+            gpu = params_from_numpy(params_to_numpy(cpu), "cuda")
+            steps = RING_STEPS if ring else 12
+            toks = torch.from_numpy(np.random.default_rng(40 + i).integers(
+                0, cfg.vocab_size, (2, steps)).astype(np.int64))
+            lc, calls_c, cc = run(cpu, cfg, toks, "cpu", ring)
+            lg, calls_g, cg = run(gpu, cfg, toks, "cuda", ring)
+            n_moe = sum(n for _, n, (_, m) in layer_groups(cfg) if m)
+            kept = torch.ones(lc.shape[:2], dtype=torch.bool)
+            label = arch + (" ring" if ring else "") + (
+                f", window {cfg.window}" if ring and cfg.window else "")
+            if n_moe:
+                flipped = flips(routing_path(calls_c, n_moe),
+                                routing_path(calls_g, n_moe))
+                flipped_total[label] = int(flipped.sum())
+                kept = before_first_flip(flipped)[:, steps - lc.shape[1]:]
+            worst[label] = float((lg - lc).abs().amax(dim=-1)[kept].max())
+            for gc_, cc_ in zip(cg, cc):
+                if "pos" in cc_ and not torch.equal(gc_["pos"].cpu(),
+                                                    cc_["pos"]):
+                    raise AssertionError(f"{label}: cache positions differ "
+                                         "from the CPU's")
+    bad = {k: v for k, v in worst.items() if not v <= TABLE_TOL}
+    bad.update({k: f"{v} flips" for k, v in flipped_total.items()
+                if v > ZOO_FLIP_BOUND})
+    if bad:
+        raise AssertionError(f"reduced zoo tables GPU vs CPU beyond "
+                             f"{TABLE_TOL} or {ZOO_FLIP_BOUND} flips: {bad}")
+    log("reduced MoE/MLA/Mamba/RG-LRU tables (prefill of 8 and 4 decode "
+        f"steps; ring decodes of {RING_STEPS} steps), GPU vs the CPU port "
+        f"(bound {TABLE_TOL}): max |err| "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+        + "; routing flips " + json.dumps(flipped_total))
+    return worst
+
+
+def zoo_spec(arch):
+    """``lm_zipf`` (the tiny check's corpus, vocab 256) on ``arch``
+    ``reduced()`` at that vocab in f32, registered through
+    ``register_lm_model`` as ``llama60m_spec`` does."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.scenarios.catalog import lm_zipf
+    from repro_torch.scenarios.lm import register_lm_model
+    name = "reduced_" + arch.replace("-", "_")
+
+    def reduced_table(seed, *, vocab, device):
+        cfg = configs.get_reduced(arch, vocab=vocab).replace(dtype="float32")
+        gen = torch.Generator().manual_seed(seed)
+        return M.init_params(cfg, gen, device=device), cfg
+
+    register_lm_model(name, reduced_table)
+    return dataclasses.replace(lm_zipf(name=f"lm_zipf_{name}"), model=name,
+                               model_kwargs={})
+
+
+def zoo_training(total):
+    """``fedpac_soap`` (eps 1e-3, K=5) for ``ZOO_ROUNDS`` rounds on
+    reduced Mixtral (the MoE's segment products under the client path's
+    vmap and grad) and reduced Falcon-Mamba (the log-depth scans), on the
+    card against the CPU path at the tiny ``lm_zipf`` check's tolerances:
+    5 ``matmul_fused`` and ``ZOO_TRAIN[arch]`` ``adam_moments`` launches a
+    step.  Adds the launches to ``total`` and returns them."""
+    from repro_torch.api import build_experiment, materialize
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.utils.tree import tree_leaves
+    zoo = collections.Counter()
+    for arch, n_leaves in ZOO_TRAIN.items():
+        spec = zoo_spec(arch)
+        gpu = materialize(spec, seed=0, device="cuda")
+        cpu = dataclasses.replace(
+            materialize(spec, seed=0, device="cpu"),
+            params=params_from_numpy(params_to_numpy(gpu.params), "cpu"))
+        if len(tree_leaves(gpu.params)) != n_leaves:
+            raise AssertionError(f"reduced {arch}: "
+                                 f"{len(tree_leaves(gpu.params))} leaves, "
+                                 f"want {n_leaves}")
+        label = f"lm_zipf reduced {arch} fedpac_soap"
+        kw = dict(rounds=ZOO_ROUNDS, local_steps=5,
+                  opt_kwargs={"eps": CNN_EPS})
+        exp = metrics_on_card(build_experiment("fedpac_soap", scenario=gpu,
+                                               **kw))
+        hist, launches = run_experiment(label, exp,
+                                        ("matmul_fused", "adam_moments"),
+                                        LM_FINITE)
+        steps = exp.fed.local_steps * ZOO_ROUNDS
+        for name, per in (("matmul_fused", 5), ("adam_moments", n_leaves)):
+            if launches[name] != per * steps:
+                raise AssertionError(f"{label}: {launches[name]} {name} "
+                                     f"launches, want {per} x {steps} steps")
+        zoo.update(launches)
+        ref, _ = run_experiment(f"{label} (cpu reference)", build_experiment(
+            "fedpac_soap", scenario=cpu, device="cpu", **kw),
+            finite=LM_FINITE)
+        compare_histories(label, ref, hist, LM_SOAP_TOL, CNN_REL_TOL)
+    for name, n in zoo.items():
+        total[name] += n
+    return zoo
 
 
 # ------------------------------------------------------- SmolLM training
@@ -2757,7 +3076,10 @@ def smollm_kernel_rows(dev):
 
 # the phases run by fresh_phase: each traces the card
 PHASES = {"serve": lambda dev: serve_smollm(),
-          "smollm_kernel_rows": smollm_kernel_rows}
+          "smollm_kernel_rows": smollm_kernel_rows,
+          **{f"serve {arch}": (lambda dev, a=arch, n=layers, c=count:
+                               serve_table(a, c, n))
+             for arch, layers, count in ZOO_SERVE}}
 
 
 def start():
@@ -2798,6 +3120,8 @@ def main():
     build_kernels(dev)
     # the phases timed by whole traces, each in a young process of its own
     fresh_phase("serve")
+    for arch, _, _ in ZOO_SERVE:
+        fresh_phase(f"serve {arch}")
     smol_rows = fresh_phase("smollm_kernel_rows")
     gen = torch.Generator(device=dev).manual_seed(0)
     leaves = ([((m, n, S_VIT), leaf_inputs(m, n, S_VIT, dev, gen))
@@ -2833,6 +3157,11 @@ def main():
     lm_launches = lm_paths(launches)
     traffic_paths(launches)
     log(f"LM and traffic paths: {time.perf_counter() - t_lm:.1f} s")
+    t_zoo = time.perf_counter()
+    zoo_tables_on_card()
+    zoo_training(launches)
+    log(f"reduced MoE/MLA/Mamba/RG-LRU tables and training: "
+        f"{time.perf_counter() - t_zoo:.1f} s")
     t_smol = time.perf_counter()
     tables_on_card()
     gc.collect()

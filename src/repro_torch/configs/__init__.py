@@ -1,10 +1,5 @@
 """Architecture registry: 10 assigned architectures + the paper's own
-models (counterpart of ``repro/configs``).
-
-The paper's LLaMA tables (Table 3) and the six dense-attention tables are
-ported; ``get_config`` of the other four assigned architectures raises
-until the layers they need land with their ROADMAP queue 1 item.
-"""
+models (counterpart of ``repro/configs``)."""
 from __future__ import annotations
 
 import importlib
@@ -32,21 +27,8 @@ _ARCHS = {
 ASSIGNED = list(_ARCHS)[:10]
 ALL = list(_ARCHS)
 
-# the assigned tables whose layers are not ported yet -> the ROADMAP queue 1
-# item that brings them
-NOT_PORTED = {
-    "mixtral-8x22b": "item 3: the MoE layer",
-    "deepseek-v2-236b": "item 4: multi-head latent attention and MoE",
-    "falcon-mamba-7b": "item 5: the Mamba block",
-    "recurrentgemma-2b": "item 5: the RG-LRU block",
-}
-
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} table is not ported yet (ROADMAP queue 1 "
-            f"{NOT_PORTED[name]})")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[name]}")
     return mod.CONFIG
 

@@ -1,7 +1,9 @@
 """Serving driver: prefill + batched decode with KV caches (counterpart of
 ``repro/launch/serve.py``).
 
-Random weights and a random prompt from ``--seed``, then greedy
+Random weights and a random prompt from ``--seed``, drawn by a generator
+on ``--device`` (on the card, so that a full-width table's billions of
+weights are not drawn by one host thread), then greedy
 (``--temperature 0``) or temperature sampling, one token a decode step,
 under ``torch.inference_mode()``.  Runs on ``--device`` (default
 ``cuda``; raises without a card, never falls back to the CPU).
@@ -77,12 +79,13 @@ def main(argv=None):
     cfg = (configs.get_reduced(args.arch)
            if args.reduced else configs.get_config(args.arch))
     cfg = cfg.replace(dtype="float32")
-    host = torch.Generator().manual_seed(args.seed)
-    params = M.init_params(cfg, host, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_params(cfg, gen, device=dev)
     max_len = args.prompt_len + args.gen
     shape = ((args.batch, args.prompt_len, cfg.num_codebooks)
              if cfg.num_codebooks > 1 else (args.batch, args.prompt_len))
-    prompt = torch.randint(0, cfg.vocab_size, shape, generator=host).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device=dev)
     sampler = torch.Generator(device=dev).manual_seed(args.seed)
 
     def sample(logits):

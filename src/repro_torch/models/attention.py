@@ -1,5 +1,6 @@
-"""Attention: GQA (+bias), sliding-window / local attention and the KV
-caches of decode (counterpart of ``repro/models/attention.py``).
+"""Attention: GQA (+bias), sliding-window / local attention, DeepSeek-V2's
+multi-head latent attention (MLA) and the caches of decode (counterpart
+of ``repro/models/attention.py``).
 
 Written as the reference writes it, in plain tensor ops: grouped query
 heads contract against the raw KV heads (no repeat), scores in f32 scaled
@@ -16,14 +17,19 @@ buf)}``, ``pos`` -1 where nothing was written.  ``buf`` is ``max_len``, or
 ``min(max_len, window)`` for a ring buffer of a windowed layer.  New K/V
 are written into the buffer in place (the reference's
 ``dynamic_update_slice`` returns a new buffer), at the reference's
-clamped slot: see ``_cache_start``.  MLA waits for ROADMAP queue 1 item 4.
+clamped slot: see ``_cache_start``.  An MLA layer's cache holds only the
+compressed latents, ``{"c_kv": (B, max_len, kv_lora), "k_rope": (B,
+max_len, rope_dim), "pos"}``, always linear; its per-head K/V are
+expanded from them at every step, and its attention contracts q·k over
+``qk_nope + qk_rope`` (192 at full width, so the scale is ``192 **
+-0.5``) and weights V of ``v_head_dim`` (128).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Initializer
+from repro_torch.models.layers import Initializer, apply_norm, init_norm
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -46,6 +52,23 @@ def init_attention(ini: Initializer, cfg: ModelConfig):
         p["bk"] = ini.zeros((nkv * hd,))
         p["bv"] = ini.zeros((nkv * hd,))
     return p
+
+
+def init_mla(ini: Initializer, cfg: ModelConfig):
+    m = cfg.mla
+    d = cfg.d_model
+    h = cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ini.dense((d, m.q_lora_rank)),
+        "q_norm": init_norm(ini, m.q_lora_rank, cfg.norm_type),
+        "wq_b": ini.dense((m.q_lora_rank, h * qk)),
+        "wkv_a": ini.dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": init_norm(ini, m.kv_lora_rank, cfg.norm_type),
+        "wkv_b": ini.dense((m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wo": ini.dense((h * m.v_head_dim, d)),
+    }
 
 
 # ================================================================ masks
@@ -200,5 +223,77 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.full((batch, buf), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+# ================================================================ MLA layer
+
+def mla_forward(p, x, positions, cfg: ModelConfig, *, cache=None,
+                cache_index=None):
+    """DeepSeek-V2 Multi-head Latent Attention: x (B,S,D) -> (out,
+    new_cache).
+
+    With a cache, the new latents ``(c_kv, k_rope)`` and positions are
+    written in place at ``cache_index``, clamped as
+    ``dynamic_update_slice`` clamps (to ``max_len - s``), and the queries
+    attend to the whole buffer, masked by the filled slots; ``new_cache``
+    is ``cache`` itself.
+    """
+    m = cfg.mla
+    b, s, d = x.shape
+    h = cfg.n_heads
+    q = apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_type) @ p["wq_b"]
+    q = q.reshape(b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+
+    kv_a = x @ p["wkv_a"]  # (B,S,kv_lora+rope)
+    c_kv, k_rope = torch.split(
+        kv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = apply_norm(p["kv_norm"], c_kv, cfg.norm_type)
+
+    pos1d = positions[..., 0] if positions.ndim == 3 else positions
+    q_rope = apply_rope(q_rope, pos1d, theta=cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos1d,
+                        theta=cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None:
+        cc, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        start = max(0, min(int(cache_index), cc.shape[1] - s))
+        sl = slice(start, start + s)
+        cc[:, sl] = c_kv.to(cc.dtype)
+        cr[:, sl] = k_rope.to(cr.dtype)
+        cpos[:, sl] = pos1d.to(cpos.dtype).expand(b, s)
+        k_valid = (cpos <= pos1d[:, -1:]) & (cpos >= 0)
+        c_kv_all, k_rope_all, kpos = cc, cr, cpos
+    else:
+        c_kv_all, k_rope_all, kpos = c_kv, k_rope, pos1d
+        k_valid = None
+
+    # expand the latent to per-head K (nope part) and V
+    kv = c_kv_all @ p["wkv_b"]  # (B,T,h*(nope+v))
+    t = kv.shape[1]
+    kv = kv.reshape(b, t, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
+        b, t, h, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(q_full, k, v, pos1d, kpos, cfg, window=0, k_valid=k_valid)
+    out = out.reshape(b, s, h * m.v_head_dim)
+    return out @ p["wo"], cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device="cpu"):
+    """An empty MLA cache: the latents of ``max_len`` positions, -1
+    where nothing was written."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
                           device=device),
     }

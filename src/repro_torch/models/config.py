@@ -1,12 +1,6 @@
 """Model configuration dataclasses covering all assigned architecture
 families (counterpart of ``repro/models/config.py``; ``torch_dtype`` in
-place of ``jnp_dtype``).
-
-The port builds the dense attention families (``attn``/``swa``/
-``local_attn`` blocks with an MLP); the MoE, MLA, SSM and RG-LRU configs
-are here so every table loads, and their layers wait for ROADMAP queue 1
-items 3 (MoE), 4 (MLA) and 5 (SSM, RG-LRU).
-"""
+place of ``jnp_dtype``)."""
 from __future__ import annotations
 
 import dataclasses

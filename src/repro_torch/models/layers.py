@@ -2,11 +2,15 @@
 head (counterpart of ``repro/models/layers.py``), and the ``Initializer``
 that takes the place of ``repro/models/param.py``.
 
-The ``Initializer`` draws every weight from one ``torch.Generator`` on the
-host, in the reference's order and with its distributions and scales
-(fan-in scaled normal for dense weights, N(0, 0.02) for embeddings, ones
-and zeros for norms and biases), not its random bits: parity runs carry
-the reference's weights across (``repro_torch.convert``).  With
+The ``Initializer`` draws every weight from one ``torch.Generator``, in
+the reference's order and with its distributions and scales (fan-in
+scaled normal for dense weights, N(0, 0.02) for embeddings, ones and
+zeros for norms and biases, ``constant`` for Mamba's and RG-LRU's fixed
+inits), not its random bits: parity runs carry the reference's weights
+across (``repro_torch.convert``).  A host generator draws on the host and
+copies to ``device`` (every CPU path and test); a CUDA generator draws on
+the card, so that the billions of weights of a full-width table are not
+drawn by one host thread.  With
 ``gen=None`` it builds shapes only (tensors on the ``meta`` device), the
 counterpart of the reference's ``jax.eval_shape`` over its init.  Logical
 sharding axes are not kept: they belong to the mesh layer (ROADMAP
@@ -23,8 +27,9 @@ from repro_torch.models.config import ModelConfig
 
 
 class Initializer:
-    """Weights in the reference's draw order from one host generator;
-    shapes only when ``gen`` is None."""
+    """Weights in the reference's draw order from one generator (on the
+    generator's device, then placed on ``device``); shapes only when
+    ``gen`` is None."""
 
     def __init__(self, gen: Optional[torch.Generator], dtype=torch.float32,
                  device="cpu"):
@@ -35,7 +40,8 @@ class Initializer:
     def _normal(self, shape, std):
         if self.gen is None:
             return torch.empty(shape, dtype=self.dtype, device="meta")
-        v = torch.randn(shape, generator=self.gen, dtype=torch.float32) * std
+        v = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.gen.device) * std
         return v.to(device=self.device, dtype=self.dtype)
 
     def dense(self, shape, scale=None):
@@ -53,6 +59,14 @@ class Initializer:
 
     def ones(self, shape):
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def constant(self, value):
+        """``value`` (a tensor or array-like) as a weight; its shape only
+        when building shapes."""
+        value = torch.as_tensor(value)
+        if self.gen is None:
+            return torch.empty(value.shape, dtype=self.dtype, device="meta")
+        return value.to(device=self.device, dtype=self.dtype)
 
 
 # ---------------------------------------------------------------- norms

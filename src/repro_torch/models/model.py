@@ -9,7 +9,7 @@ Batch convention (all entries optional except labels for training):
   loss_mask : (B, S) weights of the next-token loss
 
 The parameter tree keeps the reference's keys — ``embed/tok``
-(``embed/head`` untied), ``blocks/<g>/{pre_norm,mixer,post_norm,mlp}/…``
+(``embed/head`` untied), ``blocks/<g>/{pre_norm,mixer,post_norm,mlp|moe}/…``
 stacked ``(layers, ...)`` per group, ``final_norm`` — so
 ``optim.api.is_hidden_matrix`` picks the same leaves for SOAP and Muon and
 checkpoints are keyed by the same strings.  ``init_boxed`` and

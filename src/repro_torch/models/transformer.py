@@ -1,30 +1,35 @@
 """Unified decoder: per-layer blocks stacked into groups (counterpart of
-``repro/models/transformer.py``), for the ``attn``/``swa``/``local_attn``
-blocks with a dense MLP.
+``repro/models/transformer.py``): attention (GQA, windowed, or MLA),
+Mamba and RG-LRU mixers, each followed by a dense or MoE MLP (none after
+a Mamba block).
 
 Consecutive layers with the same signature (block kind, MoE-ness) are
 stacked on a leading "layers" axis, one leaf ``(layers, ...)`` a weight,
 as the reference stacks them for its ``lax.scan``.  The port runs a group
 as a loop over the slices ``p_stack[i]``: the gradient of a stacked leaf
 comes back as that one stacked leaf, so SOAP and Muon see the reference's
-batched ``(layers, m, n)`` matrices, and their grouped launches count the
-same.  ``remat`` (the reference's ``jax.checkpoint``) would map to
-``torch.utils.checkpoint``, which does not compose with ``torch.func``'s
-``vmap``/``grad`` of the client path, so it raises until the launch layer
-needs it (ROADMAP queue 1 item 6).  MoE layers, MLA, and the ``mamba``/
-``rglru`` blocks wait for items 3, 4 and 5.
+batched ``(layers, m, n)`` matrices (and ``(layers, E, m, n)`` expert
+stacks), and their grouped launches count the same.  ``remat`` (the
+reference's ``jax.checkpoint``) would map to ``torch.utils.checkpoint``,
+which does not compose with ``torch.func``'s ``vmap``/``grad`` of the
+client path, so it raises until the launch layer needs it (ROADMAP
+queue 1 item 6).
 
 Decode caches are stacked per group like the weights, one ``(layers,
-...)`` leaf a buffer.  The reference's scan returns new stacked caches;
-here layer ``i`` writes its new K/V into slice ``i`` of the group's
-buffers in place, and ``backbone_forward`` returns the same tensors, so a
-decode step copies no cache.
+...)`` leaf a buffer: K/V (or MLA's latents) for attention, the O(1)
+conv and recurrent states for Mamba and RG-LRU.  The reference's scan
+returns new stacked caches; here layer ``i`` writes into slice ``i`` of
+the group's buffers in place, and ``backbone_forward`` returns the same
+tensors, so a decode step copies no cache.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Initializer, apply_mlp, apply_norm, init_mlp, init_norm,
@@ -32,16 +37,6 @@ from repro_torch.models.layers import (
 from repro_torch.utils.tree import tree_map
 
 ATTN_KINDS = ("attn", "swa", "local_attn")
-
-
-# the ROADMAP queue 1 item that brings each layer the port lacks
-_ITEM = {"the MoE layer": 3, "multi-head latent attention (MLA)": 4,
-         "the 'mamba' block": 5, "the 'rglru' block": 5}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {_ITEM[what]})")
 
 
 def _layer_is_moe(cfg: ModelConfig, layer: int) -> bool:
@@ -68,24 +63,26 @@ def layer_groups(cfg: ModelConfig):
 
 # ---------------------------------------------------------------- init
 
-def _check_kind(kind: str):
-    if kind not in ATTN_KINDS:
-        if kind in ("mamba", "rglru"):
-            raise _not_ported(f"the {kind!r} block")
+def init_layer(ini: Initializer, cfg: ModelConfig, kind: str, is_moe: bool):
+    p = {"pre_norm": init_norm(ini, cfg.d_model, cfg.norm_type)}
+    if kind in ATTN_KINDS:
+        if cfg.mla is not None:
+            p["mixer"] = attn.init_mla(ini, cfg)
+        else:
+            p["mixer"] = attn.init_attention(ini, cfg)
+    elif kind == "mamba":
+        p["mixer"] = ssm_lib.init_mamba(ini, cfg)
+    elif kind == "rglru":
+        p["mixer"] = rglru_lib.init_rglru(ini, cfg)
+    else:
         raise ValueError(kind)
 
-
-def init_layer(ini: Initializer, cfg: ModelConfig, kind: str, is_moe: bool):
-    _check_kind(kind)
-    if cfg.mla is not None:
-        raise _not_ported("multi-head latent attention (MLA)")
-    if is_moe:
-        raise _not_ported("the MoE layer")
-    p = {"pre_norm": init_norm(ini, cfg.d_model, cfg.norm_type),
-         "mixer": attn.init_attention(ini, cfg)}
-    if cfg.d_ff > 0:
+    if kind != "mamba" and (cfg.d_ff > 0 or is_moe):
         p["post_norm"] = init_norm(ini, cfg.d_model, cfg.norm_type)
-        p["mlp"] = init_mlp(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
+        if is_moe:
+            p["moe"] = moe_lib.init_moe(ini, cfg)
+        else:
+            p["mlp"] = init_mlp(ini, cfg.d_model, cfg.d_ff, cfg.mlp_type)
     return p
 
 
@@ -93,8 +90,14 @@ def init_blocks(ini: Initializer, cfg: ModelConfig):
     """Returns list of stacked per-group params (leading axis = group size)."""
     blocks = []
     for start, length, (kind, is_moe) in layer_groups(cfg):
-        layers = [init_layer(ini, cfg, kind, is_moe) for _ in range(length)]
-        blocks.append(tree_map(lambda *xs: torch.stack(xs), *layers))
+        # one (length, ...) buffer a leaf, filled layer by layer in the
+        # draw order: a group never holds its layers twice
+        first = init_layer(ini, cfg, kind, is_moe)
+        stack = tree_map(lambda a: a.new_empty((length, *a.shape)), first)
+        for i in range(length):
+            layer = first if i == 0 else init_layer(ini, cfg, kind, is_moe)
+            tree_map(lambda buf, a: buf[i].copy_(a), stack, layer)
+        blocks.append(stack)
     return blocks
 
 
@@ -102,19 +105,36 @@ def init_blocks(ini: Initializer, cfg: ModelConfig):
 
 def layer_forward(p, x, positions, cfg: ModelConfig, kind: str,
                   is_moe: bool, *, cache=None, cache_index=None):
-    """One layer: ``(x, new_cache, aux)`` (aux is 0 without MoE; the
-    cache, written in place, is ``cache`` itself)."""
-    _check_kind(kind)
-    if is_moe:
-        raise _not_ported("the MoE layer")
+    """One layer: ``(x, new_cache, aux)`` (aux is the MoE router's
+    load-balance loss, else 0; the cache, written in place, is ``cache``
+    itself)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["pre_norm"], x, cfg.norm_type)
-    window = cfg.window if kind in ("swa", "local_attn") else 0
-    out, new_cache = attn.attention_forward(
-        p["mixer"], h, positions, cfg, window=window, cache=cache,
-        cache_index=cache_index)
+    if kind in ATTN_KINDS:
+        if cfg.mla is not None:
+            out, new_cache = attn.mla_forward(
+                p["mixer"], h, positions, cfg, cache=cache,
+                cache_index=cache_index)
+        else:
+            window = cfg.window if kind in ("swa", "local_attn") else 0
+            out, new_cache = attn.attention_forward(
+                p["mixer"], h, positions, cfg, window=window, cache=cache,
+                cache_index=cache_index)
+    elif kind == "mamba":
+        out, new_cache = ssm_lib.mamba_forward(p["mixer"], h, cfg,
+                                               cache=cache)
+    elif kind == "rglru":
+        out, new_cache = rglru_lib.rglru_forward(p["mixer"], h, cfg,
+                                                 cache=cache)
+    else:
+        raise ValueError(kind)
     x = x + out
-    if "mlp" in p:
+
+    if "moe" in p:
+        h = apply_norm(p["post_norm"], x, cfg.norm_type)
+        out, aux = moe_lib.moe_forward(p["moe"], h, cfg)
+        x = x + out
+    elif "mlp" in p:
         h = apply_norm(p["post_norm"], x, cfg.norm_type)
         x = x + apply_mlp(p["mlp"], h, cfg.mlp_type)
     return x, new_cache, aux
@@ -122,12 +142,18 @@ def layer_forward(p, x, positions, cfg: ModelConfig, kind: str,
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, ring: bool = False, device="cpu"):
-    _check_kind(kind)
-    if cfg.mla is not None:
-        raise _not_ported("multi-head latent attention (MLA)")
-    window = cfg.window if kind in ("swa", "local_attn") else 0
-    return attn.init_attn_cache(cfg, batch, max_len, window, dtype,
-                                ring=ring, device=device)
+    if kind in ATTN_KINDS:
+        if cfg.mla is not None:
+            return attn.init_mla_cache(cfg, batch, max_len, dtype,
+                                       device=device)
+        window = cfg.window if kind in ("swa", "local_attn") else 0
+        return attn.init_attn_cache(cfg, batch, max_len, window, dtype,
+                                    ring=ring, device=device)
+    if kind == "mamba":
+        return ssm_lib.init_mamba_cache(cfg, batch, dtype, device=device)
+    if kind == "rglru":
+        return rglru_lib.init_rglru_cache(cfg, batch, dtype, device=device)
+    raise ValueError(kind)
 
 
 def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -143,13 +169,20 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def _kind_cache_axes(cfg: ModelConfig, kind: str):
-    """Logical axes of one attention layer's cache (``init_layer_cache``)."""
-    _check_kind(kind)
-    if cfg.mla is not None:
-        raise _not_ported("multi-head latent attention (MLA)")
-    return {"k": ("batch", "seq", "kv_heads", "head_dim"),
-            "v": ("batch", "seq", "kv_heads", "head_dim"),
-            "pos": ("batch", "seq")}
+    """Logical axes of one layer's cache (``init_layer_cache``)."""
+    if kind in ATTN_KINDS:
+        if cfg.mla is not None:
+            return {"c_kv": ("batch", "seq", "kv_lora"),
+                    "k_rope": ("batch", "seq", None),
+                    "pos": ("batch", "seq")}
+        return {"k": ("batch", "seq", "kv_heads", "head_dim"),
+                "v": ("batch", "seq", "kv_heads", "head_dim"),
+                "pos": ("batch", "seq")}
+    if kind == "mamba":
+        return {"conv": ("batch", None, "ffn"), "ssm": ("batch", "ffn", None)}
+    if kind == "rglru":
+        return {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn")}
+    raise ValueError(kind)
 
 
 def cache_axes(cfg: ModelConfig):

@@ -1,8 +1,8 @@
 """The six dense-attention tables of the port (``repro_torch.configs``:
 StarCoder2-3B, SmolLM-360M, ChatGLM3-6B, Qwen1.5-110B, Qwen2-VL-7B,
 MusicGen-medium) against the JAX package's: every field of the full and
-the reduced tables, ``num_params``, the assignment's shape table, the
-four tables still to come, and on each ``reduced()`` table the logits,
+the reduced tables, ``num_params``, the assignment's shape table, and on
+each ``reduced()`` table the logits,
 loss and gradients of the transformer LM on the carried-across JAX
 weights (Qwen2-VL also from ``embeds``, MusicGen on its 4 codebooks).
 
@@ -44,8 +44,6 @@ SHAPES = {
     "chatglm3-6b": (28, 4096, 32, 2, 13696, 65024),
     "qwen1.5-110b": (80, 8192, 64, 8, 49152, 152064),
 }
-NOT_PORTED = {"mixtral-8x22b": 3, "deepseek-v2-236b": 4,
-              "falcon-mamba-7b": 5, "recurrentgemma-2b": 5}
 
 
 def _cfgs(arch):
@@ -81,14 +79,6 @@ def test_full_tables_match_reference():
     # 49,152 x 960 tied embedding + 32 layers of 9,832,320 + the final norm
     assert model.num_params(configs.get_config("smollm-360m")) == \
         49_152 * 960 + 32 * 9_832_320 + 960 == 361_821_120
-
-
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_tables_raise_naming_their_item(arch):
-    assert arch in configs.ASSIGNED
-    with pytest.raises(NotImplementedError,
-                       match=f"queue 1 item {NOT_PORTED[arch]}"):
-        configs.get_config(arch)
 
 
 # ---------------------------------------------------------------- parity

@@ -101,10 +101,11 @@ def test_prefill_and_decode_match_forward_and_reference(arch):
 
 def test_cache_axes_match_reference_and_caches():
     """``cache_axes`` gives the reference's logical axes, one a dimension
-    of each group's stacked cache."""
+    of each group's stacked cache, on all ten tables (MLA's latents,
+    Mamba's and RG-LRU's states included)."""
     from repro.models import transformer as jax_transformer
     from repro_torch.models import transformer
-    for arch in DENSE:
+    for arch in configs.ASSIGNED:
         tcfg = configs.get_reduced(arch)
         axes = transformer.cache_axes(tcfg)
         assert axes == jax_transformer.cache_axes(

@@ -66,7 +66,7 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.scenarios.lm"} | {
         f"repro_torch.models.{m}" for m in (
             "config", "layers", "rope", "attention", "transformer",
-            "model")} <= set(mods)
+            "model", "moe", "ssm", "rglru")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -122,8 +122,6 @@ TPU_OR_JAX_ONLY = {
 }
 # names still queued in ROADMAP queue 1, by item
 QUEUED = {
-    "models/attention.py": {"init_mla": 4, "mla_forward": 4,
-                            "init_mla_cache": 4},
     "models/model.py": {"init_boxed": 7, "param_axes": 7},
     "models/__init__.py": {"init_boxed": 7, "param_axes": 7},
     "core/client.py": {"LocalRunConfig.beta": 6},
@@ -131,10 +129,6 @@ QUEUED = {
 # reference modules with no port counterpart: the ROADMAP queue 1 item
 # that brings each, or what stands in for it
 MODULES_LEFT = {
-    "configs/mixtral_8x22b.py": "item 3", "models/moe.py": "item 3",
-    "configs/deepseek_v2_236b.py": "item 4",
-    "configs/falcon_mamba_7b.py": "item 5", "models/ssm.py": "item 5",
-    "configs/recurrentgemma_2b.py": "item 5", "models/rglru.py": "item 5",
     "launch/steps.py": "item 6", "launch/train.py": "item 6",
     "launch/dryrun.py": "item 7", "launch/mesh.py": "item 7",
     "launch/specs.py": "item 7", "sharding/__init__.py": "item 7",

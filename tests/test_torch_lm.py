@@ -48,6 +48,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.algorithms import build_round_fn, zero_theta
 from repro_torch.data import synth
 from repro_torch.models import attention, model, rope, transformer
+from repro_torch.models.layers import Initializer
 from repro_torch.optim import soap
 from repro_torch.optim.api import matrix_mask
 from repro_torch.utils.tree import (
@@ -169,13 +170,11 @@ def test_configs_match_reference():
             assert model.num_params(g) == jax_model.num_params(w)
     # LLaMA-60M at full width: 8 layers of d 512, d_ff 1376, tied vocab
     assert model.num_params(configs.get_config("llama-60m")) == 41_689_600
-    # the assigned tables whose layers are still to come raise, naming the
-    # ROADMAP queue 1 item that brings them (tests/test_torch_arch.py holds
-    # the six dense tables)
-    for name, item in (("mixtral-8x22b", 3), ("deepseek-v2-236b", 4),
-                       ("falcon-mamba-7b", 5), ("recurrentgemma-2b", 5)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            configs.get_config(name)
+    # every table loads, each equal to the reference's (tests/test_torch_
+    # arch.py, test_torch_moe.py and test_torch_ssm.py hold their counts)
+    for name in configs.ALL:
+        assert dataclasses.asdict(configs.get_config(name)) == \
+            dataclasses.asdict(jax_configs.get_config(name)), name
 
 
 def test_param_tree_and_matrix_leaves():
@@ -200,8 +199,8 @@ def test_param_tree_and_matrix_leaves():
     windowed = _cfgs("windowed")[1]
     assert transformer.layer_groups(windowed) == \
         [(0, 2, ("swa", False)), (2, 1, ("attn", False))]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        transformer.init_layer(None, windowed, "mamba", False)
+    with pytest.raises(ValueError, match="conv"):
+        transformer.init_layer(Initializer(None), windowed, "conv", False)
     p = model.init_params(_cfgs("lm_zipf")[1], torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
