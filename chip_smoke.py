@@ -95,6 +95,25 @@ ring caches, each against the CPU port on the same weights; then
 49,152 for two rounds (5 ``matmul_fused`` and 11 ``adam_moments`` a
 step, the untrained loss at its expectation, the loss falling).
 
+Last, the launch layer: ``launch.steps.make_train_step`` on the
+unreduced SmolLM-360M in its bf16 table dtype (batch 8, seq 256; Muon,
+SOAP at ``state_dtype`` bf16 and Sophia, 3 steps each, their launches a
+step asserted; ``remat`` against none: the same loss, and at most half
+the memory for the loss and gradients; the reduced table against the
+CPU port), ``make_fed_round_step`` on the
+unreduced LLaMA-60M (8 clients x 2 steps, dense and with the qblock
+delta: one ``quantize`` launch; the reduced table against the CPU port),
+``launch.train.main`` on LLaMA-60M for 3 rounds (trace validated,
+checkpoint restored), and, each in a fresh process, ``launch.dryrun`` at
+full width on the 256-rank fake pod mesh (SmolLM-360M x ``train_4k``,
+Mixtral-8x22B x ``decode_32k``: host work on fake tensors, no kernel)
+and the CNN ``fedpac_soap`` round through the ``shard_map`` executor over
+a one-rank NCCL ``DeviceMesh``, bitwise against ``mesh=None``.  On one
+rank the executor takes the whole cohort itself, as with ``mesh=None``:
+that phase checks that a ``DeviceMesh`` is accepted on the card, not
+the per-rank slicing and all-gather, which only a run of two or more
+ranks reaches (``tests/test_torch_mesh.py``, over gloo on the CPU).
+
 Each path fails if one of its kernels was never launched, and unless
 SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
 refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
@@ -337,6 +356,45 @@ ZOO_RING = ("mixtral-8x22b", "falcon-mamba-7b", "recurrentgemma-2b")
 # conv_b, dt_bias, A_log, D, the final norm)
 ZOO_TRAIN = {"mixtral-8x22b": 13, "falcon-mamba-7b": 13}
 ZOO_ROUNDS = 2
+# the launch layer (launch.steps, launch.train, launch.dryrun, the
+# multi-rank executors).  make_train_step on the unreduced SmolLM-360M in
+# its table dtype (bf16) at batch 8, seq 256, 3 steps an optimizer (step 0
+# refreshes SOAP's basis and Sophia's curvature); the launches a step:
+# SOAP 5 grouped matmul_fused and one adam_moments a leaf (7 rotated
+# matrices, 4 fallback), Muon 15 matmul_fused (5 Newton-Schulz steps of 3
+# grouped products) and one adam_moments a fallback leaf, Sophia one
+# sophia_update
+TRAIN_STEP = dict(batch=8, seq=256, steps=3)
+TRAIN_STEP_OPTS = {"muon": {}, "soap": {"state_dtype": "bfloat16"},
+                   "sophia": {}}
+TRAIN_STEP_LAUNCHES = {"muon": {"matmul_fused": 15, "adam_moments": 4},
+                       "soap": {"matmul_fused": 5, "adam_moments": 11},
+                       "sophia": {"sophia_update": 1}}
+# the reduced table GPU vs the CPU port, f32: the matrix leaves within
+# five times the CPU parity test's 2e-5 + 1e-4 relative
+# (tests/test_torch_launch.py) for two devices' sum orders, as TABLE_TOL
+# is five times the tables' 2e-5.  The Adam-fallback leaves (embeddings,
+# norms) are held through the loss of the updated params: at step 0
+# Adam's g / (|g| + 1e-8) turns a roundoff-level change of a gradient
+# entry near 1e-8 into an O(1) change of its step (the reference's eps;
+# seen at 2.3e-4 on a param), which moves the loss by far less than
+# STEP_LOSS_TOL, the Sophia paths' GPU-vs-CPU loss tolerance
+STEP_ATOL, STEP_RTOL = 1e-4, 5e-4
+STEP_LOSS_TOL = 1e-3
+# make_fed_round_step on the unreduced LLaMA-60M (f32): 8 clients x 2
+# local steps x 2 sequences of 256 tokens, fedpac_soap; the cohort steps
+# together, so a round is 2 steps of 5 matmul_fused and 11 adam_moments;
+# the qblock delta wire adds one grouped quantize launch (its roundtrip's
+# encode).  Against the CPU port on the reduced table with SPD-warm-started
+# Theta: STEP_ATOL/STEP_RTOL on the dense wire; on qblock a delta element
+# may land one int8 level apart, ~1e-4 of a param here, so 1e-3
+FED_ROUND = dict(clients=8, local_steps=2, micro=2, seq=256)
+FED_QBLOCK_ATOL = 1e-3
+# launch.train.main on the unreduced LLaMA-60M with fedpac_soap, its
+# defaults otherwise (8 clients at participation 0.5, K=5, batch 8, seq 64)
+TRAIN_ROUNDS = 3
+# the dry-run at full width on the 256-rank fake pod mesh
+DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("mixtral-8x22b", "decode_32k"))
 
 
 def log(*a):
@@ -2901,6 +2959,448 @@ def zoo_training(total):
     return zoo
 
 
+# ------------------------------------------------------- the launch layer
+
+def reset_launches():
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_launches(wrappers):
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def spd_theta(opt, params, seed):
+    """A full-rank SPD L/R for every matrix leaf of ``params`` (host
+    draws), so that a first QR refresh is well posed on both devices."""
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator().manual_seed(seed)
+
+    def spd(x):
+        n = x.shape[-1]
+        a = torch.randn(x.shape, generator=gen)
+        return a @ a.transpose(-1, -2) / n + 0.5 * torch.eye(n)
+    return tree_map(spd, opt.get_precond(opt.init(tree_map(
+        lambda p: p.cpu(), params))))
+
+
+def step_agrees(label, cfg, batch, want, got, atol, rtol):
+    """The card's updated params ``got`` against the CPU port's ``want``:
+    the matrix leaves elementwise, and every leaf through the loss on
+    ``batch`` (both evaluated on the CPU) within ``STEP_LOSS_TOL``."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.api import matrix_mask
+    from repro_torch.utils.tree import tree_map
+    got = tree_map(lambda x: x.cpu(), got)
+    trees_close(label, want, got, atol, rtol, mask=matrix_mask(want))
+    with torch.no_grad():
+        lw, lg = (float(M.loss_fn(p, batch, cfg)) for p in (want, got))
+    if abs(lg - lw) > STEP_LOSS_TOL:
+        raise AssertionError(f"{label}: loss after the step {lg} vs {lw}")
+    log(f"{label}: loss after the step {lg:.6f} vs {lw:.6f} on the CPU")
+
+
+def trees_close(label, want, got, atol, rtol, mask=None):
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+    worst = 0.0
+    keep = tree_leaves(mask) if mask is not None else None
+    for i, ((path, w), (_, g)) in enumerate(zip(
+            tree_flatten_with_path(want), tree_flatten_with_path(got))):
+        if keep is not None and not keep[i]:
+            continue
+        w, g = w.float().cpu(), g.float().cpu()
+        excess = ((g - w).abs() - rtol * w.abs()).max().item()
+        worst = max(worst, excess)
+        if excess > atol:
+            raise AssertionError(f"{label}: {path} off by {excess} beyond "
+                                 f"{rtol} relative (atol {atol})")
+    log(f"{label}: GPU agrees with the CPU port (worst excess over "
+        f"{rtol} relative {worst:.3e} <= {atol})")
+
+
+def train_step_smollm(total):
+    """``launch.steps.make_train_step`` on the unreduced SmolLM-360M in
+    bf16: Muon, SOAP (``state_dtype`` bf16) and Sophia, 3 steps each, with
+    their launches a step asserted; ``remat=True`` against ``remat=False``
+    (the same loss, at most half the loss-and-gradient memory); then the
+    reduced table on the card
+    against the CPU port.  Adds the launches to ``total``."""
+    from repro_torch import configs, optim
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+    cfg = configs.get_config("smollm-360m")
+    if (cfg.dtype, M.num_params(cfg)) != ("bfloat16", 361_821_120):
+        raise AssertionError("SmolLM-360M: want bf16 and 361,821,120 "
+                             "parameters")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    b, s = TRAIN_STEP["batch"], TRAIN_STEP["seq"]
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    gg = tree_map(lambda p: 1e-3 * torch.randn(
+        p.shape, generator=gen, device="cuda"), params)
+    found = collections.Counter()
+    for name, kw in TRAIN_STEP_OPTS.items():
+        opt = optim.make(name, **kw)
+        fn = ST.make_train_step(cfg, opt, lr=optim.DEFAULT_LR[name])
+        state, p = opt.init(params), params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_launches()
+        ms = []
+        for step in range(TRAIN_STEP["steps"]):
+            t0 = time.perf_counter()
+            p, state, loss = fn(p, state, gg, batch, step)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"train_step {name}: loss {loss}")
+        launches = read_launches(wrappers)
+        label = f"train_step smollm-360m {name}"
+        for k, per in TRAIN_STEP_LAUNCHES[name].items():
+            if launches[k] != per * TRAIN_STEP["steps"]:
+                raise AssertionError(f"{label}: {launches[k]} {k} launches, "
+                                     f"want {per} a step")
+        if any(x.dtype != torch.bfloat16 for x in tree_leaves(p)):
+            raise AssertionError(f"{label}: params left bf16")
+        # (a norm scale at 1.0 may not move: its step is below half a
+        # bf16 ulp there)
+        if all(torch.equal(a, b) for a, b in zip(tree_leaves(p),
+                                                 tree_leaves(params))):
+            raise AssertionError(f"{label}: params did not move")
+        found.update(launches)
+        if name == "muon":   # the newton_schulz row's launches
+            total["newton_schulz"] += launches["matmul_fused"]
+        log(f"{label}: step ms (host clock to a sync) "
+            + ", ".join(f"{x:.1f}" for x in ms) + f"; loss {float(loss):.4f}"
+            f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            "launches " + json.dumps(launches))
+        del state, p
+    # remat: the same loss; the memory that the loss and gradients (the
+    # optimizer's own peak does not depend on remat) and a whole step
+    # take above what is resident before them, so that buffers left by
+    # earlier phases do not enter the comparison.  Each measurement's
+    # outputs are dropped before the next one starts.
+    opt = optim.make("soap", state_dtype="bfloat16")
+    out = {}
+    wrappers = reset_launches()
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+
+    def above_resident(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(fn())
+        torch.cuda.synchronize()
+        return loss, torch.cuda.max_memory_allocated() - base
+
+    for remat in (False, True):
+        def loss_and_grads():
+            loss = ST.make_loss_fn(cfg, remat=remat)(
+                tree_unflatten(params, leaves), batch)
+            torch.autograd.grad(loss, leaves)
+            return loss.detach()
+
+        def step():
+            fn = ST.make_train_step(cfg, opt, lr=optim.DEFAULT_LR["soap"],
+                                    remat=remat)
+            return fn(params, opt.init(params), gg, batch, 1)[2]
+
+        out[remat] = above_resident(loss_and_grads) + above_resident(step)
+    found.update(read_launches(wrappers))
+    (l0, g0, s0, p0), (l1, g1, s1, p1) = out[False], out[True]
+    if abs(l1 - l0) > 1e-6 * abs(l0) or abs(s1 - s0) > 1e-6 * abs(s0):
+        raise AssertionError(f"remat: loss {l1}, {s1} vs {l0}, {s0}")
+    log(f"train_step smollm-360m remat: loss {l1:.6f} = {l0:.6f}; loss "
+        f"and gradients {g1 / 2**30:.3f} GiB above resident with remat, "
+        f"{g0 / 2**30:.3f} GiB without; a SOAP step {p1 / 2**30:.3f} and "
+        f"{p0 / 2**30:.3f} GiB")
+    # 32 layers' saved activations against their inputs alone: remat must
+    # save at least half of the no-remat loss-and-gradient memory
+    if not g1 <= 0.5 * g0:
+        raise AssertionError(f"remat saves too little: {g1} bytes above "
+                             f"resident with remat, {g0} without")
+    del leaves
+    del params, gg
+    # the reduced table, f32: the card against the CPU port
+    rcfg = configs.get_reduced("smollm-360m").replace(dtype="float32")
+    cpu_p = M.init_params(rcfg, torch.Generator().manual_seed(1))
+    tok = torch.randint(0, rcfg.vocab_size, (4, 33),
+                        generator=torch.Generator().manual_seed(2))
+    rb = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    rgg = tree_map(lambda x: 0.01 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(3)), cpu_p)
+    wrappers = reset_launches()
+    for name, step in (("muon", 0), ("soap", 0), ("sophia", 1)):
+        kw = {"eps": CNN_EPS} if name == "soap" else {}
+        opt = optim.make(name, **kw)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.to(dev), cpu_p)
+            st = opt.init(p)
+            if name == "soap":
+                st = opt.set_precond(st, tree_map(
+                    lambda x: x.to(dev), spd_theta(opt, cpu_p, 4)))
+            elif name == "sophia":
+                # a curvature away from 0: at h = 0 every step sits at the
+                # clip, whose sign a roundoff-level m flips
+                st = dict(st, h=tree_map(lambda h: h + 0.5, st["h"]))
+            fn = ST.make_train_step(rcfg, opt, lr=1e-2)
+            res[dev] = fn(p, st, tree_map(lambda x: x.to(dev), rgg),
+                          {k: v.to(dev) for k, v in rb.items()}, step)
+        if abs(float(res["cuda"][2]) - float(res["cpu"][2])) > TABLE_TOL:
+            raise AssertionError(f"reduced {name}: loss {res['cuda'][2]} vs "
+                                 f"{res['cpu'][2]}")
+        step_agrees(f"train_step reduced smollm-360m {name}", rcfg, rb,
+                    res["cpu"][0], res["cuda"][0], STEP_ATOL, STEP_RTOL)
+    found.update(read_launches(wrappers))
+    for k, n in found.items():
+        total[k] += n
+    return found
+
+
+def fed_round_llama60m(total):
+    """``launch.steps.make_fed_round_step`` on the unreduced LLaMA-60M with
+    ``fedpac_soap``, once on the dense wire and once with the qblock delta
+    transport (``quantize`` asserted), then the reduced table on the card
+    against the CPU port.  Adds the launches to ``total``."""
+    from repro_torch import configs, optim
+    from repro_torch.core import transport as T
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    c, k = FED_ROUND["clients"], FED_ROUND["local_steps"]
+    rows, s = c * k * FED_ROUND["micro"], FED_ROUND["seq"]
+
+    def qblock():
+        return T.Transport(T.resolve_codec("qblock"), T.Dense(),
+                           error_feedback=False)
+
+    def inputs(cfg, dev, gen):
+        p = M.init_params(cfg, gen, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (rows, s + 1), generator=gen,
+                            device=gen.device).to(dev)
+        gg = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), p)
+        return p, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}, gg
+
+    found = collections.Counter()
+    cfg = configs.get_config("llama-60m")
+    p, batch, gg = inputs(cfg, "cuda",
+                          torch.Generator(device="cuda").manual_seed(0))
+    for wire in ("dense", "qblock"):
+        opt = optim.make("soap")
+        fn = ST.make_fed_round_step(
+            cfg, opt, lr=optim.DEFAULT_LR["soap"], clients=c,
+            local_steps=k, algorithm="fedpac_soap",
+            transport=qblock() if wire == "qblock" else None)
+        theta = opt.get_precond(opt.init(p))
+        wrappers = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, new_th, new_g, loss = fn(p, theta, gg, batch, 0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        label = f"fed_round llama-60m fedpac_soap {wire}"
+        want = {"matmul_fused": 5 * k, "adam_moments": 11 * k,
+                "quantize": 1 if wire == "qblock" else 0}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{label}: {launches[name]} {name} "
+                                     f"launches, want {n}")
+        if not math.isfinite(float(loss)) or not all(
+                torch.isfinite(x).all() for x in tree_leaves(new_p)):
+            raise AssertionError(f"{label}: non-finite")
+        log(f"{label}: {sec:.2f} s (host clock to a sync, first call), "
+            f"loss {float(loss):.4f}, launches " + json.dumps(launches))
+        found.update(launches)
+    del p, batch, gg
+    rcfg = configs.get_reduced("llama-60m")
+    cpu_p, cpu_b, cpu_g = inputs(rcfg, "cpu", torch.Generator().manual_seed(5))
+    wrappers = reset_launches()
+    for wire in ("dense", "qblock"):
+        opt = optim.make("soap", eps=CNN_EPS)
+        theta = spd_theta(opt, cpu_p, 6)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            fn = ST.make_fed_round_step(
+                rcfg, opt, lr=1e-2, clients=c, local_steps=k,
+                algorithm="fedpac_soap",
+                transport=qblock() if wire == "qblock" else None)
+            res[dev] = fn(*(tree_map(lambda x: x.to(dev), t) for t in
+                            (cpu_p, theta, cpu_g, cpu_b)))
+        label = f"fed_round reduced llama-60m {wire}"
+        if abs(float(res["cuda"][3]) - float(res["cpu"][3])) > TABLE_TOL:
+            raise AssertionError(f"{label}: loss {res['cuda'][3]} vs "
+                                 f"{res['cpu'][3]}")
+        atol = STEP_ATOL if wire == "dense" else FED_QBLOCK_ATOL
+        step_agrees(label, rcfg, {k: v[:4] for k, v in cpu_b.items()},
+                    res["cpu"][0], res["cuda"][0], atol, STEP_RTOL)
+    found.update(read_launches(wrappers))
+    for name, n in found.items():
+        total[name] += n
+    return found
+
+
+def train_llama60m(total):
+    """``launch.train.main`` on the unreduced LLaMA-60M with
+    ``fedpac_soap`` for ``TRAIN_ROUNDS`` rounds, traced and checkpointed
+    every round: s/round, the trace validated, the last checkpoint
+    restored into a template.  Adds the launches to ``total``."""
+    import tempfile
+    from repro_torch import configs, optim
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.core.server import init_server
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.obs import validate_jsonl
+    from repro_torch.utils.tree import tree_leaves
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, ck = os.path.join(tmp, "t.jsonl"), os.path.join(tmp, "ck")
+        hist = []
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        rc = train.main(["--arch", "llama-60m", "--algorithm", "fedpac_soap",
+                         "--rounds", str(TRAIN_ROUNDS), "--trace", trace,
+                         "--checkpoint-dir", ck, "--checkpoint-every", "1",
+                         "--device", "cuda"], history=hist)
+        sec = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        label = "train llama-60m fedpac_soap"
+        steps = 5 * TRAIN_ROUNDS
+        if rc != 0 or len(hist) != TRAIN_ROUNDS:
+            raise AssertionError(f"{label}: rc {rc}, {len(hist)} rounds")
+        for name, per in (("matmul_fused", 5), ("adam_moments", 11)):
+            if launches[name] != per * steps:
+                raise AssertionError(f"{label}: {launches[name]} {name} "
+                                     f"launches, want {per} x {steps} steps")
+        events = validate_jsonl(trace)
+        cfg = configs.get_config("llama-60m")
+        tmpl_p = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(9), device="cuda")
+        opt = optim.make("soap")
+        template = dataclasses.replace(
+            init_server(tmpl_p), theta=opt.get_precond(opt.init(tmpl_p)))
+        server = CheckpointManager(ck).restore(template)
+        if latest_step(ck) != TRAIN_ROUNDS or server.round != TRAIN_ROUNDS \
+                or not all(torch.isfinite(x).all()
+                           for x in tree_leaves(server.params)):
+            raise AssertionError(f"{label}: checkpoint at round "
+                                 f"{server.round}, want {TRAIN_ROUNDS}")
+        log(f"{label}: {sec / TRAIN_ROUNDS:.2f} s/round (host clock, "
+            f"{TRAIN_ROUNDS} rounds incl. the first's warm-up), loss "
+            f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, eval "
+            f"{hist[-1]['eval_loss']:.4f}; the trace validates ({events} "
+            f"events); round {server.round} restored; launches "
+            + json.dumps(launches))
+    for name, n in launches.items():
+        total[name] += n
+    return launches
+
+
+def dryrun_pod(dev):
+    """``launch.dryrun`` at full width on the 256-rank fake pod mesh (on
+    the host: fake tensors, no kernel runs): each record printed, the
+    train step's collective bytes > 0, and every record's FLOPs > 0 and
+    at most what its ranks execute together."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    recs = []
+    with dryrun.fake_process_group(256):
+        mesh = make_production_mesh()
+        for arch, shape in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            cfg, sh, low = dryrun.build_lowering(arch, shape, mesh)
+            rec = dryrun.analyze(arch, shape, "pod", low, cfg, sh)
+            rec["lower_s"] = round(time.perf_counter() - t0, 1)
+            log(f"dryrun {arch} x {shape} x pod: " + json.dumps(rec))
+            # the whole program's FLOPs, each op once, against what the
+            # 256 ranks execute together (replicated work on each)
+            if not rec["rank_flops"] * mesh.size() >= rec["hlo_flops"] > 0:
+                raise AssertionError(
+                    f"dryrun {arch}: {rec['hlo_flops']} FLOPs, "
+                    f"{rec['rank_flops']} on rank 0")
+            recs.append(rec)
+    if not recs[0]["collective_bytes"] > 0:
+        raise AssertionError("dryrun: the train step moved no collective "
+                             "bytes")
+    return {"records": recs, "launches": {}}
+
+
+def mesh_executor(dev):
+    """The CNN ``fedpac_soap`` round (2 rounds) through the ``shard_map``
+    executor over a one-rank NCCL ``DeviceMesh``, bitwise against the
+    same experiment with ``mesh=None``.  One rank runs the whole cohort
+    as ``mesh=None`` does (``executors._client_group``), so this checks
+    that a ``DeviceMesh`` is taken on the card; the per-rank slice and the
+    all-gather need two ranks.  Returns its launches."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.api import build_experiment
+    from repro_torch.core.algorithms import build_round_fn
+    from repro_torch.core.engine import ExecutorConfig
+    from repro_torch.utils.tree import tree_leaves
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        runs = {}
+        wrappers = reset_launches()
+        for name, m in (("none", None), ("mesh", mesh)):
+            exp = build_experiment("fedpac_soap", scenario="cifar_like_cnn",
+                                   rounds=2, executor="shard_map",
+                                   device="cuda")
+            fed = exp.fed
+            exp.round_fn = build_round_fn(
+                exp.spec, exp.loss_fn, exp.opt, lr=exp.lr,
+                local_steps=fed.local_steps,
+                beta=exp.spec.resolve_beta(fed.beta),
+                hessian_freq=fed.hessian_freq, server_lr=fed.server_lr,
+                transport=exp.transport,
+                executor=ExecutorConfig("shard_map", mesh=m),
+                n_clients=fed.n_clients, telemetry=True)
+            hist = exp.run()
+            runs[name] = (hist, tree_leaves(exp.server.params))
+        launches = read_launches(wrappers)
+        (h0, p0), (h1, p1) = runs["none"], runs["mesh"]
+        if [r["loss"] for r in h0] != [r["loss"] for r in h1] or not all(
+                torch.equal(a, b) for a, b in zip(p0, p1)):
+            raise AssertionError("mesh executor: the one-rank NCCL mesh's "
+                                 "round differs from mesh=None")
+        log("mesh executor: the CNN fedpac_soap rounds over a one-rank NCCL "
+            "DeviceMesh equal mesh=None bitwise; losses "
+            + json.dumps([r["loss"] for r in h1]) + "; launches "
+            + json.dumps(launches))
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches}
+
+
+def launch_paths(total):
+    """The launch layer's phases; adds their launches to ``total``."""
+    t0 = time.perf_counter()
+    train_step_smollm(total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fed_round_llama60m(total)
+    train_llama60m(total)
+    for name in ("dryrun", "mesh executor"):
+        out = fresh_phase(name)
+        for k, n in out["launches"].items():
+            total[k] += n
+    log(f"launch layer: {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------- SmolLM training
 
 def smollm_spec():
@@ -3077,6 +3577,7 @@ def smollm_kernel_rows(dev):
 # the phases run by fresh_phase: each traces the card
 PHASES = {"serve": lambda dev: serve_smollm(),
           "smollm_kernel_rows": smollm_kernel_rows,
+          "dryrun": dryrun_pod, "mesh executor": mesh_executor,
           **{f"serve {arch}": (lambda dev, a=arch, n=layers, c=count:
                                serve_table(a, c, n))
              for arch, layers, count in ZOO_SERVE}}
@@ -3170,6 +3671,9 @@ def main():
     smol_errs, smol_timings = smol_rows["errs"], smol_rows["timings"]
     log(f"SmolLM-360M reduced tables and training: "
         f"{time.perf_counter() - t_smol:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_paths(launches)
 
     meta = {
         "adam_moments": dict(

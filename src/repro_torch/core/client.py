@@ -39,6 +39,7 @@ from repro_torch.utils.tree import (
 class LocalRunConfig:
     lr: float
     local_steps: int           # K
+    beta: float = 0.0          # correction strength (Eq. 9); 0 => none
     hessian_freq: int = 10     # Sophia's f_h
     align: bool = True         # warm-start Theta from the global reference
 
@@ -109,7 +110,8 @@ def client_round(
     g_global,         # estimated global direction g_G^r (params-like)
     batches,          # tree with leading (S, K, ...) axes
     cohort_exec: Callable,
-    beta,             # correction strength (Eq. 9); 0 => no correction
+    beta=None,        # runtime override (drift-adaptive beta);
+    #                   None -> run.beta
     *,
     seed=0,           # the round's draw, or (S,) per-client seeds: seeds
     #                   the Hutchinson probes (``probe_generators``)
@@ -123,6 +125,7 @@ def client_round(
     the steps that refresh the curvature of an optimizer that
     ``needs_hessian``.
     """
+    beta = run.beta if beta is None else beta
     s = next(iter(batches.values())).shape[0]
     x = tree_map(lambda p: p.expand(s, *p.shape).clone(), x0)
     opt_state = opt.init(x, lead=1)

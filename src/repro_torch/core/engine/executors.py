@@ -17,15 +17,21 @@ and returns stacked outputs.  Backends:
              on each shard;
   sharded    ``shard_map`` with the chunked body inside each shard.
 
-The port's meshes have one device, the run's own (``mesh=None``): the
-reference's divisibility check holds trivially there, and the sharded
-backends reduce to ``vmap`` and ``chunked``.  A mesh of several devices
-(``torch.distributed`` ``DeviceMesh``) waits for ROADMAP queue 1 item 7
-and raises ``NotImplementedError``.
+``mesh=None`` (or a one-rank mesh) is the run's own device: the
+reference's divisibility check holds trivially, and the sharded backends
+reduce to ``vmap`` and ``chunked``.  On a ``torch.distributed``
+``DeviceMesh`` whose client axes (``sharding.client_axis_spec``) span
+``n`` ranks, every rank runs the same call: it takes its ``S/n`` clients
+(the slice at its pod-major index along those axes), runs the body on
+them, and all-gathers each stacked output over the client axes, so every
+rank holds the cohort's outputs in client order, as the reference's
+``shard_map`` hands them to the engine.  A cohort that ``n`` does not
+divide raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -66,18 +72,39 @@ def _chunked_run(fn, chunk_size: int, *args):
     return tree_map(lambda *xs: torch.cat(xs), *outs)
 
 
-def _mesh_extent(cfg: ExecutorConfig) -> int:
-    """Devices the client axis spreads over: 1 for the run's own device."""
-    if cfg.mesh is None:
-        return 1
-    size = cfg.mesh.size() if callable(getattr(cfg.mesh, "size", None)) \
-        else int(cfg.mesh)
-    if size != 1:
-        raise NotImplementedError(
-            f"a {size}-device mesh for the {cfg.backend!r} executor is not "
-            "ported (ROADMAP queue 1 item 7: torch.distributed DeviceMesh "
-            "sharding); mesh=None runs on the run's own device")
-    return 1
+def _client_group(cfg: ExecutorConfig):
+    """(n, index, group): the ranks the client axis spreads over, this
+    rank's pod-major index among them, and their process group; (1, 0,
+    None) for the run's own device."""
+    mesh = cfg.mesh
+    if mesh is None or (isinstance(mesh, int) and mesh == 1):
+        return 1, 0, None
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise ValueError(
+            f"the {cfg.backend!r} executor takes a torch.distributed "
+            f"DeviceMesh or None, got {mesh!r}")
+    from repro_torch.sharding.partitioning import client_axis_spec
+    axes, _ = client_axis_spec(mesh, preferred=cfg.client_axes)
+    n = math.prod(mesh[a].size() for a in axes)
+    if n == 1:
+        return 1, 0, None
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    if len(axes) > 1:
+        sub = sub._flatten()
+    return n, sub.get_local_rank(), sub.get_group()
+
+
+def _gather_clients(tree, n: int, group):
+    """Each leaf's (S/n, ...) rows from every rank of ``group``, joined
+    in rank order along the client axis."""
+    import torch.distributed as dist
+
+    def one(x):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+    return tree_map(one, tree)
 
 
 def make_cohort_executor(cfg: ExecutorConfig | None = None):
@@ -93,7 +120,7 @@ def make_cohort_executor(cfg: ExecutorConfig | None = None):
         return vmapped
     if cfg.backend == "chunked":
         return chunked
-    n = _mesh_extent(cfg)                 # an unported mesh raises here
+    n, index, group = _client_group(cfg)
     body = vmapped if cfg.backend == "shard_map" else chunked
 
     def sharded(fn, *args):
@@ -103,5 +130,9 @@ def make_cohort_executor(cfg: ExecutorConfig | None = None):
                 f"cohort size {s} not divisible by the client-axis "
                 f"extent {n} (mesh axes {cfg.client_axes}) — pad the cohort "
                 f"or use the 'chunked' executor")
-        return body(fn, *args)
+        if n == 1:
+            return body(fn, *args)
+        w = s // n
+        mine = tree_map(lambda x: x[index * w:(index + 1) * w], args)
+        return _gather_clients(body(fn, *mine), n, group)
     return sharded

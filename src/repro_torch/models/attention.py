@@ -26,10 +26,14 @@ expanded from them at every step, and its attention contracts q·k over
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Initializer, apply_norm, init_norm
+from repro_torch.models.layers import (
+    Initializer, apply_norm, constrain, init_norm,
+)
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -42,15 +46,15 @@ def init_attention(ini: Initializer, cfg: ModelConfig):
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     p = {
-        "wq": ini.dense((d, nq * hd)),
-        "wk": ini.dense((d, nkv * hd)),
-        "wv": ini.dense((d, nkv * hd)),
-        "wo": ini.dense((nq * hd, d)),
+        "wq": ini.dense((d, nq * hd), ("embed", "qkv")),
+        "wk": ini.dense((d, nkv * hd), ("embed", "qkv")),
+        "wv": ini.dense((d, nkv * hd), ("embed", "qkv")),
+        "wo": ini.dense((nq * hd, d), ("qkv", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ini.zeros((nq * hd,))
-        p["bk"] = ini.zeros((nkv * hd,))
-        p["bv"] = ini.zeros((nkv * hd,))
+        p["bq"] = ini.zeros((nq * hd,), ("qkv",))
+        p["bk"] = ini.zeros((nkv * hd,), ("qkv",))
+        p["bv"] = ini.zeros((nkv * hd,), ("qkv",))
     return p
 
 
@@ -60,14 +64,16 @@ def init_mla(ini: Initializer, cfg: ModelConfig):
     h = cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq_a": ini.dense((d, m.q_lora_rank)),
+        "wq_a": ini.dense((d, m.q_lora_rank), ("embed", "kv_lora")),
         "q_norm": init_norm(ini, m.q_lora_rank, cfg.norm_type),
-        "wq_b": ini.dense((m.q_lora_rank, h * qk)),
-        "wkv_a": ini.dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "wq_b": ini.dense((m.q_lora_rank, h * qk), ("kv_lora", "qkv")),
+        "wkv_a": ini.dense((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", "kv_lora")),
         "kv_norm": init_norm(ini, m.kv_lora_rank, cfg.norm_type),
         "wkv_b": ini.dense((m.kv_lora_rank,
-                            h * (m.qk_nope_head_dim + m.v_head_dim))),
-        "wo": ini.dense((h * m.v_head_dim, d)),
+                            h * (m.qk_nope_head_dim + m.v_head_dim)),
+                           ("kv_lora", "qkv")),
+        "wo": ini.dense((h * m.v_head_dim, d), ("qkv", "embed")),
     }
 
 
@@ -145,13 +151,87 @@ def _chunked_sdpa(q, k, v, q_pos, k_pos, window: int, chunk: int):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
 
 
+def _on_local_shards(core, q, k, v, q_pos, k_pos, k_valid):
+    """``core`` on the local shards of DTensor q/k/v (the dry-run's
+    meshes).  Attention is independent across sequences and heads, so a
+    mesh dim that shards q's batch (dim 0) or heads (dim 2; when it also
+    divides the KV heads, so that each shard keeps whole GQA groups)
+    shards q, k and v alike and needs no communication; q/k/v are
+    redistributed to that layout (other mesh dims replicate) and ``core``
+    runs on the local tensors.  Without this, DTensor would have to
+    shard the products of the merged (batch, head) dims, for which it has
+    no rule."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    heads = []
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(pl, Shard) and pl.dim == 0:
+            heads.append(Shard(0))
+        elif (isinstance(pl, Shard) and pl.dim == 2
+              and k.shape[2] % n == 0):
+            heads.append(Shard(2))
+        else:
+            heads.append(Replicate())
+    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in heads]
+
+    def local(x, placements):
+        if x is None:
+            return None
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, placements).to_local()
+
+    out = core(local(q, heads), local(k, heads), local(v, heads),
+               local(q_pos, rows), local(k_pos, rows),
+               local(k_valid, rows)).contiguous()
+    shape = (*q.shape[:3], v.shape[-1])
+    return DTensor.from_local(out, mesh, heads, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def _split_heads(t, heads: int, head_dim: int):
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim).  A DTensor
+    whose last dim is split over mesh dims whose product does not divide
+    ``heads`` gathers that dim first (XLA's choice too): DTensor cannot
+    view a shard that cuts through a head."""
+    placements = getattr(t, "placements", None)
+    if placements is not None:
+        mesh, last = t.device_mesh, t.ndim - 1
+        on_last = [j for j, pl in enumerate(placements)
+                   if pl.is_shard(last)]
+        if heads % math.prod(mesh.size(j) for j in on_last):
+            from torch.distributed.tensor import Replicate
+            t = constrain(t, [Replicate() if j in on_last else pl
+                              for j, pl in enumerate(placements)])
+    return t.reshape(*t.shape[:2], heads, head_dim)
+
+
+def _merge_heads(t):
+    """(B, S, H, D) -> (B, S, H * D); a DTensor's gradient is brought to
+    the merged layout before it is viewed back into heads."""
+    out = t.reshape(*t.shape[:2], -1)
+    return constrain(out, getattr(out, "placements", None))
+
+
 def sdpa(q, k, v, q_pos, k_pos, cfg: ModelConfig, window: int,
          k_valid=None):
     """The chunked path for long queries, unless a cache's ``k_valid``
-    mask is given (the reference's rule)."""
+    mask is given (the reference's rule).  DTensor inputs run on their
+    local shards (``_on_local_shards``)."""
     if q.shape[1] >= cfg.attn_chunk_threshold and k_valid is None:
-        return _chunked_sdpa(q, k, v, q_pos, k_pos, window, cfg.attn_chunk)
-    return _sdpa(q, k, v, q_pos, k_pos, window, k_valid)
+        def core(q, k, v, q_pos, k_pos, _):
+            return _chunked_sdpa(q, k, v, q_pos, k_pos, window,
+                                 cfg.attn_chunk)
+    else:
+        def core(q, k, v, q_pos, k_pos, k_valid):
+            return _sdpa(q, k, v, q_pos, k_pos, window, k_valid)
+    if hasattr(q, "placements"):           # a DTensor
+        return _on_local_shards(core, q, k, v, q_pos, k_pos, k_valid)
+    return core(q, k, v, q_pos, k_pos, k_valid)
 
 
 # ================================================================ GQA layer
@@ -185,9 +265,9 @@ def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int,
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+    q = _split_heads(q, nq, hd)
+    k = _split_heads(k, nkv, hd)
+    v = _split_heads(v, nkv, hd)
 
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    fraction=cfg.rope_fraction,
@@ -208,8 +288,7 @@ def attention_forward(p, x, positions, cfg: ModelConfig, *, window: int,
         cpos[:, sl] = q_pos1d.to(cpos.dtype).expand(b, s)
         k_valid = (cpos <= q_pos1d[:, -1:]) & (cpos >= 0)  # filled slots
         out = sdpa(q, ck, cv, q_pos1d, cpos, cfg, window, k_valid=k_valid)
-    out = out.reshape(b, s, nq * hd)
-    return out @ p["wo"], cache
+    return _merge_heads(out) @ p["wo"], cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
@@ -244,7 +323,7 @@ def mla_forward(p, x, positions, cfg: ModelConfig, *, cache=None,
     b, s, d = x.shape
     h = cfg.n_heads
     q = apply_norm(p["q_norm"], x @ p["wq_a"], cfg.norm_type) @ p["wq_b"]
-    q = q.reshape(b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = _split_heads(q, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
 
@@ -274,14 +353,13 @@ def mla_forward(p, x, positions, cfg: ModelConfig, *, cache=None,
     # expand the latent to per-head K (nope part) and V
     kv = c_kv_all @ p["wkv_b"]  # (B,T,h*(nope+v))
     t = kv.shape[1]
-    kv = kv.reshape(b, t, h, m.qk_nope_head_dim + m.v_head_dim)
+    kv = _split_heads(kv, h, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
         b, t, h, m.qk_rope_head_dim)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = sdpa(q_full, k, v, pos1d, kpos, cfg, window=0, k_valid=k_valid)
-    out = out.reshape(b, s, h * m.v_head_dim)
-    return out @ p["wo"], cache
+    return _merge_heads(out) @ p["wo"], cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

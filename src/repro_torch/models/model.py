@@ -12,8 +12,9 @@ The parameter tree keeps the reference's keys — ``embed/tok``
 (``embed/head`` untied), ``blocks/<g>/{pre_norm,mixer,post_norm,mlp|moe}/…``
 stacked ``(layers, ...)`` per group, ``final_norm`` — so
 ``optim.api.is_hidden_matrix`` picks the same leaves for SOAP and Muon and
-checkpoints are keyed by the same strings.  ``init_boxed`` and
-``param_axes`` (the logical sharding axes) wait for ROADMAP queue 1 item 7.
+checkpoints are keyed by the same strings.  ``init_boxed`` returns the
+weights as ``layers.Box``es with their logical sharding axes, and
+``param_axes`` the axes tree alone, built on the ``meta`` device.
 
 Serving: ``prefill`` fills fresh caches with the prompt, ``decode_step``
 takes one token a sequence and writes into the caches it is given, in
@@ -29,12 +30,13 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    Initializer, embed_tokens, init_embedding, init_norm, lm_logits,
+    Initializer, axes_of, constrain, embed_tokens, init_embedding,
+    init_norm, lm_logits,
 )
 from repro_torch.models.transformer import (
     backbone_forward, init_blocks, init_group_caches,
 )
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------- init
@@ -52,6 +54,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cpu"):
     then placed on ``device`` in ``cfg.dtype``."""
     return _init(cfg, Initializer(gen, dtype=cfg.torch_dtype,
                                   device=device))
+
+
+def init_boxed(cfg: ModelConfig, gen: torch.Generator, device="cpu"):
+    """``init_params``'s weights, each a ``Box`` with its logical axes."""
+    return _init(cfg, Initializer(gen, dtype=cfg.torch_dtype,
+                                  device=device, boxed=True))
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of every weight, as a params-shaped tree of
+    tuples (shapes only: no memory allocated)."""
+    return axes_of(_init(cfg, Initializer(None, dtype=cfg.torch_dtype,
+                                          boxed=True)))
 
 
 def param_shapes(cfg: ModelConfig):
@@ -82,9 +97,14 @@ def forward(params, batch, cfg: ModelConfig, *, caches=None,
     """Returns (logits, new_caches, aux_loss); ``new_caches`` is
     ``caches``, written in place, or None without caches."""
     if batch.get("embeds") is not None:
-        x = batch["embeds"].to(cfg.torch_dtype)
+        src = batch["embeds"]
+        x = src.to(cfg.torch_dtype)
     else:
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        src = batch["tokens"]
+        x = embed_tokens(params["embed"], src, cfg)
+    # DTensor inputs (the dry-run): the activations start in the batch's
+    # layout (its batch and sequence dims)
+    x = constrain(x, getattr(src, "placements", None))
     b, s = x.shape[:2]
     if cache_index is not None:
         cache_index = int(cache_index)
@@ -136,8 +156,15 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
         b = batch["embeds"].shape[0]
     else:
         b = batch["tokens"].shape[0]
-    caches = init_caches(cfg, b, max_len,
-                         device=params["final_norm"]["scale"].device)
+    ref = params["final_norm"]["scale"]
+    caches = init_caches(cfg, b, max_len, device=ref.device)
+    if hasattr(ref, "placements"):
+        # DTensor params (the dry-run's meshes): replicated caches, so
+        # that each layer's write is a DTensor op
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = ref.device_mesh
+        caches = tree_map(lambda c: DTensor.from_local(
+            c, mesh, [Replicate()] * mesh.ndim, run_check=False), caches)
     logits, caches, _ = forward(params, batch, cfg, caches=caches,
                                 cache_index=0)
     return logits[:, -1], caches

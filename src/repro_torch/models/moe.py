@@ -24,6 +24,11 @@ alternative, every token through every expert and a mask, computes E/k
 times the products (4x for Mixtral, ~27x for DeepSeek-V2's 160 experts
 at top-6); the tests keep it as the oracle.
 
+A fake or ``meta`` tensor (the dry-run, ``launch.dryrun``) has no
+group sizes to read: there the rows split evenly over the experts
+(``_even_sizes``), the work the reference's ``ragged_dot`` costs.  A real
+tensor never takes that route.
+
 The combine does not scatter-add (``index_add_`` on the card sums by
 atomics, in no fixed order): each token has exactly ``top_k`` rows, so
 the weighted rows are put back in token order as ``(T, k, d)`` and summed
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake, unset_fake_temporarily
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Initializer, apply_mlp, init_mlp
@@ -43,10 +49,14 @@ def init_moe(ini: Initializer, cfg: ModelConfig):
     d = cfg.d_model
     f = m.d_ff_expert
     p = {
-        "router": ini.dense((d, m.num_experts), scale=0.02),
-        "w_gate": ini.dense((m.num_experts, d, f)),
-        "w_up": ini.dense((m.num_experts, d, f)),
-        "w_down": ini.dense((m.num_experts, f, d)),
+        "router": ini.dense((d, m.num_experts), ("embed", "expert"),
+                            scale=0.02),
+        "w_gate": ini.dense((m.num_experts, d, f),
+                            ("expert", "embed", "ffn")),
+        "w_up": ini.dense((m.num_experts, d, f),
+                          ("expert", "embed", "ffn")),
+        "w_down": ini.dense((m.num_experts, f, d),
+                            ("expert", "ffn", "embed")),
     }
     if m.num_shared_experts:
         p["shared"] = init_mlp(ini, d, f * m.num_shared_experts, "swiglu")
@@ -58,8 +68,10 @@ def init_moe(ini: Initializer, cfg: ModelConfig):
 def _segments(sizes):
     """[(expert, first row, end row)] of the non-empty groups; ``sizes``
     is a host tensor of rows per expert."""
+    with unset_fake_temporarily():   # the shape-only route's real sizes
+        counts = sizes.tolist()
     out, start = [], 0
-    for e, n in enumerate(sizes.tolist()):
+    for e, n in enumerate(counts):
         if n:
             out.append((e, start, start + n))
         start += n
@@ -163,6 +175,24 @@ def _ragged_expert_mlp(x_sorted, p, group_sizes):
 
 # ------------------------------------------------------------- forward
 
+def _shape_only(x) -> bool:
+    """``x`` carries shapes but no values: a fake or ``meta`` tensor (a
+    DTensor's local shard checked), as the dry-run runs the model."""
+    local = getattr(x, "_local_tensor", x)
+    return local.is_meta or is_fake(local)
+
+
+def _even_sizes(rows: int, experts: int):
+    """The shape-only route's group sizes: ``rows`` split as evenly as
+    possible over the experts (the first ``rows % experts`` get one
+    more), summing to ``rows``.  That is the work the reference's
+    ``ragged_dot`` costs whatever the routing; a fake tensor has no
+    routing to read."""
+    base, extra = divmod(rows, experts)
+    with unset_fake_temporarily():   # a real host tensor, as the read's
+        return torch.tensor([base + (e < extra) for e in range(experts)])
+
+
 def _route(p, xf, cfg: ModelConfig):
     """The router on tokens ``xf`` (T, d): (probs (T, E) in f32, top-k
     weights renormalised (T, k), top-k experts (T, k))."""
@@ -192,8 +222,12 @@ def moe_forward(p, x, cfg: ModelConfig):
     order = torch.argsort(flat_expert, stable=True)
     token_of = order // m.top_k
     x_sorted = xf[token_of]  # (T*k, d)
-    # the one host read of the layer
-    group_sizes = torch.sum(flat_expert[:, None] == experts, dim=0).cpu()
+    if _shape_only(flat_expert):
+        group_sizes = _even_sizes(t * m.top_k, m.num_experts)
+    else:
+        # the one host read of the layer
+        group_sizes = torch.sum(flat_expert[:, None] == experts,
+                                dim=0).cpu()
 
     y_sorted = _ragged_expert_mlp(x_sorted, p, group_sizes)  # (T*k, d)
     w_sorted = topw.reshape(-1)[order]

@@ -32,16 +32,17 @@ def init_rglru(ini: Initializer, cfg: ModelConfig):
     d = cfg.d_model
     w = _width(cfg)
     return {
-        "in_proj": ini.dense((d, 2 * w)),   # x branch + gate branch
-        "conv_w": ini.dense((r.d_conv, w), scale=0.5),
-        "conv_b": ini.zeros((w,)),
-        "w_r": ini.dense((w, w)),
-        "b_r": ini.zeros((w,)),
-        "w_i": ini.dense((w, w)),
-        "b_i": ini.zeros((w,)),
+        # x branch + gate branch
+        "in_proj": ini.dense((d, 2 * w), ("embed", "ffn")),
+        "conv_w": ini.dense((r.d_conv, w), ("conv", "ffn"), scale=0.5),
+        "conv_b": ini.zeros((w,), ("ffn",)),
+        "w_r": ini.dense((w, w), ("ffn", "ffn")),
+        "b_r": ini.zeros((w,), ("ffn",)),
+        "w_i": ini.dense((w, w), ("ffn", "ffn")),
+        "b_i": ini.zeros((w,), ("ffn",)),
         # Lambda parameterized so a ~ U(0.9, 0.999) at init
-        "lam": ini.constant(torch.linspace(-4.0, -9.0, w)),
-        "out_proj": ini.dense((w, d)),
+        "lam": ini.constant(torch.linspace(-4.0, -9.0, w), ("ffn",)),
+        "out_proj": ini.dense((w, d), ("ffn", "embed")),
     }
 
 

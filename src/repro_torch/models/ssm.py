@@ -49,16 +49,18 @@ def init_mamba(ini: Initializer, cfg: ModelConfig):
     a_init = torch.log(torch.arange(1, s.d_state + 1, dtype=torch.float32)
                        .expand(d_inner, s.d_state))
     return {
-        "in_proj": ini.dense((d, 2 * d_inner)),
-        "conv_w": ini.dense((s.d_conv, d_inner), scale=0.5),
-        "conv_b": ini.zeros((d_inner,)),
-        "x_proj": ini.dense((d_inner, dt_rank + 2 * s.d_state)),
-        "dt_proj": ini.dense((dt_rank, d_inner)),
+        "in_proj": ini.dense((d, 2 * d_inner), ("embed", "ffn")),
+        "conv_w": ini.dense((s.d_conv, d_inner), ("conv", "ffn"),
+                            scale=0.5),
+        "conv_b": ini.zeros((d_inner,), ("ffn",)),
+        "x_proj": ini.dense((d_inner, dt_rank + 2 * s.d_state),
+                            ("ffn", "state")),
+        "dt_proj": ini.dense((dt_rank, d_inner), ("state", "ffn")),
         "dt_bias": ini.constant(
-            torch.log(torch.expm1(torch.full((d_inner,), 0.01)))),
-        "A_log": ini.constant(a_init),
-        "D": ini.ones((d_inner,)),
-        "out_proj": ini.dense((d_inner, d)),
+            torch.log(torch.expm1(torch.full((d_inner,), 0.01))), ("ffn",)),
+        "A_log": ini.constant(a_init, ("ffn", "state")),
+        "D": ini.ones((d_inner,), ("ffn",)),
+        "out_proj": ini.dense((d_inner, d), ("ffn", "embed")),
     }
 
 

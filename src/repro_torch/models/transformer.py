@@ -10,10 +10,14 @@ as a loop over the slices ``p_stack[i]``: the gradient of a stacked leaf
 comes back as that one stacked leaf, so SOAP and Muon see the reference's
 batched ``(layers, m, n)`` matrices (and ``(layers, E, m, n)`` expert
 stacks), and their grouped launches count the same.  ``remat`` (the
-reference's ``jax.checkpoint``) would map to ``torch.utils.checkpoint``,
-which does not compose with ``torch.func``'s ``vmap``/``grad`` of the
-client path, so it raises until the launch layer needs it (ROADMAP
-queue 1 item 6).
+reference's ``jax.checkpoint`` around each layer) runs each layer under
+the non-reentrant ``torch.utils.checkpoint``: the backward keeps only
+the layer's input and recomputes the layer, and a second derivative
+(Sophia's Hessian-vector product by double backward) recomputes it
+again.  It works under plain autograd, the single-client train step's
+(``launch.steps``); ``torch.func``'s ``grad``/``vjp`` do not take the
+saved-tensor hooks that the checkpoint rests on, so under a ``torch.func``
+transform (the cohort path of ``core.client``) ``remat=True`` raises.
 
 Decode caches are stacked per group like the weights, one ``(layers,
 ...)`` leaf a buffer: K/V (or MLA's latents) for attention, the O(1)
@@ -25,6 +29,7 @@ tensors, so a decode step copies no cache.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -32,7 +37,8 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    Initializer, apply_mlp, apply_norm, init_mlp, init_norm,
+    Box, Initializer, apply_mlp, apply_norm, constrain, init_mlp, init_norm,
+    unbox,
 )
 from repro_torch.utils.tree import tree_map
 
@@ -87,16 +93,22 @@ def init_layer(ini: Initializer, cfg: ModelConfig, kind: str, is_moe: bool):
 
 
 def init_blocks(ini: Initializer, cfg: ModelConfig):
-    """Returns list of stacked per-group params (leading axis = group size)."""
+    """Returns list of stacked per-group params (leading axis = group size);
+    boxed weights get the leading ``"layers"`` axis."""
     blocks = []
     for start, length, (kind, is_moe) in layer_groups(cfg):
         # one (length, ...) buffer a leaf, filled layer by layer in the
         # draw order: a group never holds its layers twice
         first = init_layer(ini, cfg, kind, is_moe)
-        stack = tree_map(lambda a: a.new_empty((length, *a.shape)), first)
+        stack = tree_map(lambda a: a.new_empty((length, *a.shape)),
+                         unbox(first))
         for i in range(length):
             layer = first if i == 0 else init_layer(ini, cfg, kind, is_moe)
-            tree_map(lambda buf, a: buf[i].copy_(a), stack, layer)
+            tree_map(lambda buf, a: buf[i].copy_(a), stack, unbox(layer))
+        if ini.boxed:
+            stack = tree_map(lambda b, v: Box(v, ("layers",) + b.axes),
+                             first, stack,
+                             is_leaf=lambda x: isinstance(x, Box))
         blocks.append(stack)
     return blocks
 
@@ -109,7 +121,10 @@ def layer_forward(p, x, positions, cfg: ModelConfig, kind: str,
     load-balance loss, else 0; the cache, written in place, is ``cache``
     itself)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(p["pre_norm"], x, cfg.norm_type)
+    # a DTensor x (the dry-run): the norms' outputs and the residual
+    # branches, and their gradients, are held in x's layout
+    layout = getattr(x, "placements", None)
+    h = constrain(apply_norm(p["pre_norm"], x, cfg.norm_type), layout)
     if kind in ATTN_KINDS:
         if cfg.mla is not None:
             out, new_cache = attn.mla_forward(
@@ -128,15 +143,15 @@ def layer_forward(p, x, positions, cfg: ModelConfig, kind: str,
                                                  cache=cache)
     else:
         raise ValueError(kind)
-    x = x + out
+    x = x + constrain(out, layout)
 
     if "moe" in p:
-        h = apply_norm(p["post_norm"], x, cfg.norm_type)
+        h = constrain(apply_norm(p["post_norm"], x, cfg.norm_type), layout)
         out, aux = moe_lib.moe_forward(p["moe"], h, cfg)
-        x = x + out
+        x = x + constrain(out, layout)
     elif "mlp" in p:
-        h = apply_norm(p["post_norm"], x, cfg.norm_type)
-        x = x + apply_mlp(p["mlp"], h, cfg.mlp_type)
+        h = constrain(apply_norm(p["post_norm"], x, cfg.norm_type), layout)
+        x = x + constrain(apply_mlp(p["mlp"], h, cfg.mlp_type), layout)
     return x, new_cache, aux
 
 
@@ -196,21 +211,37 @@ def backbone_forward(params, x, positions, cfg: ModelConfig, *, caches=None,
                      cache_index=None, remat: bool = False):
     """x: (B,S,D) embeddings.  Returns (hidden, new_caches, aux_sum);
     ``new_caches`` is ``caches`` (updated in place), None without."""
-    if remat:
+    remat = remat and caches is None
+    if remat and torch._C._functorch.peek_interpreter_stack() is not None:
         raise NotImplementedError(
-            "remat=True would need torch.utils.checkpoint, which does not "
-            "compose with torch.func's vmap/grad of the client path; it "
-            "comes with the launch layer (ROADMAP queue 1 item 6)")
+            "remat=True runs each layer under torch.utils.checkpoint, whose "
+            "saved-tensor hooks torch.func's grad/vjp do not support: use "
+            "remat with plain autograd (launch.steps.make_train_step), not "
+            "under a torch.func transform (the cohort path of "
+            "core.client.client_round)")
+    # a DTensor x (the dry-run's meshes): every layer's input, and its
+    # gradient, is held in x's layout at entry (the batch's), as the
+    # reference's XLA propagation keeps it
+    layout = getattr(x, "placements", None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, (start, length, (kind, is_moe)) in enumerate(layer_groups(cfg)):
         p_stack = params["blocks"][gi]
         c_stack = caches[gi] if caches is not None else None
         for i in range(length):
             p_i = tree_map(lambda a: a[i], p_stack)
+            x = constrain(x, layout)
+            if remat:
+                x, aux = checkpoint(
+                    lambda h, p=p_i, k=kind, m=is_moe: layer_forward(
+                        p, h, positions, cfg, k, m)[::2],
+                    x, use_reentrant=False)
+                aux_total = aux_total + aux
+                continue
             c_i = (tree_map(lambda a: a[i], c_stack)
                    if c_stack is not None else None)
             x, _, aux = layer_forward(p_i, x, positions, cfg, kind, is_moe,
                                       cache=c_i, cache_index=cache_index)
             aux_total = aux_total + aux
-    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    x = constrain(apply_norm(params["final_norm"], x, cfg.norm_type),
+                  layout)
     return x, caches, aux_total

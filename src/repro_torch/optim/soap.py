@@ -8,6 +8,13 @@ orthogonalisation of the same power-iteration product
 the default, as in the reference); Adam run in the rotated basis.
 Theta = {L, R}.
 
+``state_dtype`` (the reference's) stores L, R, Q_L and Q_R in that dtype
+(bf16 halves the O(m^2 + n^2) state of a wide model); M, V and the Adam
+fallback stay f32.  Every product and refresh reads f32 casts of the
+stored factors and rounds its result back to ``state_dtype``, as the
+reference does: ``matmul_fused`` takes f32 operands, so the casts come
+before each grouped launch.
+
 Matrices with a dimension above ``max_precond_dim`` go one-sided (identity
 on that side); 3-D expert tensors are batched matrices; non-matrix leaves
 fall back to Adam.  Trees may carry ``lead`` leading batch dims (the
@@ -57,11 +64,15 @@ def _is_state_leaf(x):
 
 def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
          precond_freq: int = 10, max_precond_dim: int = 8192,
-         weight_decay: float = 0.0, adam_b1: float = 0.9,
-         adam_b2: float = 0.999, eig_method: str = "qr") -> LocalOptimizer:
+         weight_decay: float = 0.0, state_dtype=torch.float32,
+         adam_b1: float = 0.9, adam_b2: float = 0.999,
+         eig_method: str = "qr") -> LocalOptimizer:
     if eig_method not in EIG_METHODS:
         raise ValueError(f"eig_method must be one of {EIG_METHODS}, got "
                          f"{eig_method!r}")
+    sd = getattr(torch, state_dtype) if isinstance(state_dtype, str) \
+        else state_dtype
+    f32 = torch.float32
 
     def _leaf_state(p, is_mat, lead):
         if not is_mat:
@@ -69,7 +80,7 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         pm, _ = as_matrix(p, lead)
         m, n = pm.shape[-2], pm.shape[-1]
         batch = tuple(pm.shape[:-2])
-        kw = dict(device=p.device, dtype=torch.float32)
+        kw = dict(device=p.device, dtype=sd)
         st = {}
         if m <= max_precond_dim:
             st["L"] = torch.zeros((*batch, m, m), **kw)
@@ -77,8 +88,8 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         if n <= max_precond_dim:
             st["R"] = torch.zeros((*batch, n, n), **kw)
             st["QR"] = torch.eye(n, **kw).expand(*batch, n, n)
-        st["M"] = torch.zeros(pm.shape, **kw)
-        st["V"] = torch.zeros(pm.shape, **kw)
+        st["M"] = torch.zeros(pm.shape, device=p.device, dtype=f32)
+        st["V"] = torch.zeros(pm.shape, device=p.device, dtype=f32)
         return st
 
     def init(params, lead: int = 0):
@@ -105,7 +116,9 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
     def _matrix_updates(gs, states, step):
         """The matrix leaves' SOAP step, phase by phase over all leaves
         (one launch per product phase).  Per leaf the math and its order
-        are ``soap_rotated_update``'s after the EMAs and the refresh."""
+        are ``soap_rotated_update``'s after the EMAs and the refresh.
+        Stored factors are read as f32 casts and results rounded back to
+        ``state_dtype`` (no copy at f32)."""
         new = [dict(st) for st in states]
         # 1. L/R EMAs: L' = (1-b2) G G^T + b2 L, R' = (1-b2) G^T G + b2 R
         problems, slots = [], []
@@ -113,21 +126,24 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
             gt = g.transpose(-1, -2)
             for key, lhs, rhs in (("L", g, gt), ("R", gt, g)):
                 if key in st:
-                    problems.append((lhs, rhs, st[key], 1 - b2, b2))
+                    problems.append((lhs, rhs, st[key].to(f32), 1 - b2, b2))
                     slots.append((i, key))
         for (i, key), x in zip(slots, matmul_fused_group(problems)):
-            new[i][key] = x
+            new[i][key] = x.to(sd)
         # 2. the scheduled eigenbasis refresh, every side of every leaf
         if step % precond_freq == 0:
             sides = [(st, q, f) for st in new
                      for q, f in (("QL", "L"), ("QR", "R")) if q in st]
-            qs = _eig_refresh([(st[f], st[q]) for st, q, f in sides],
-                              eig_method)
+            qs = _eig_refresh([(st[f].to(f32), st[q].to(f32))
+                               for st, q, f in sides], eig_method)
             for (st, q, _), q_new in zip(sides, qs):
-                st[q] = q_new
+                st[q] = q_new.to(sd)
+        # the eigenbases as f32 operands of the four rotation phases
+        qf = [{k: st[k].to(f32) for k in ("QL", "QR") if k in st}
+              for st in new]
         # 3-4. G' = Q_L^T G Q_R
-        rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))
-        rot = _phase(rot, new, "QR", lambda q, g: (g, q))
+        rot = _phase(gs, qf, "QL", lambda q, g: (q.transpose(-1, -2), g))
+        rot = _phase(rot, qf, "QR", lambda q, g: (g, q))
         # 5. bias-corrected Adam in the rotated basis (t = step + 1):
         #    moments restart from zero every federated round
         ns = []
@@ -136,8 +152,8 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                 g_rot, st["M"], st["V"], b1=b1, b2=b2, eps=eps, step=step)
             ns.append(n)
         # 6-7. D = Q_L N Q_R^T
-        ds = _phase(ns, new, "QL", lambda q, n: (q, n))
-        ds = _phase(ds, new, "QR", lambda q, n: (n, q.transpose(-1, -2)))
+        ds = _phase(ns, qf, "QL", lambda q, n: (q, n))
+        ds = _phase(ds, qf, "QR", lambda q, n: (n, q.transpose(-1, -2)))
         return ds, new
 
     def update(grads, state, params, step: int, lead: int = 0,

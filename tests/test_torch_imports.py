@@ -119,21 +119,16 @@ TPU_OR_JAX_ONLY = {
                                "TransportConfig.interpret",
                                "WireMsg.treedef"},      # a jax treedef
     "core/transport/qblock.py": {"QBlock.use_pallas", "QBlock.interpret"},
+    # the TPU v5e's inter-chip link bandwidth; the port's roofline takes
+    # the H100's NVLink per-link bandwidth under NVLINK_BW
+    "launch/mesh.py": {"ICI_BW"},
 }
-# names still queued in ROADMAP queue 1, by item
-QUEUED = {
-    "models/model.py": {"init_boxed": 7, "param_axes": 7},
-    "models/__init__.py": {"init_boxed": 7, "param_axes": 7},
-    "core/client.py": {"LocalRunConfig.beta": 6},
-}
-# reference modules with no port counterpart: the ROADMAP queue 1 item
-# that brings each, or what stands in for it
+# names still queued in ROADMAP queue 1, by item: none since every
+# module of the reference has its counterpart
+QUEUED = {}
+# reference modules with no port counterpart: what stands in for each
 MODULES_LEFT = {
-    "launch/steps.py": "item 6", "launch/train.py": "item 6",
-    "launch/dryrun.py": "item 7", "launch/mesh.py": "item 7",
-    "launch/specs.py": "item 7", "sharding/__init__.py": "item 7",
-    "sharding/partitioning.py": "item 7",
-    "models/param.py": "models/layers.py::Initializer",
+    "models/param.py": "models/layers.py::{Initializer,Box}",
     # the Pallas packages' references and use_pallas switches: each
     # kernel's plain version sits in its kernel.py
     "kernels/fused_agg/ref.py": "kernel.py", "kernels/ns_ortho/ref.py":

@@ -204,8 +204,14 @@ def test_param_tree_and_matrix_leaves():
     p = model.init_params(_cfgs("lm_zipf")[1], torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    # remat: the same loss under plain autograd, a stated limit under a
+    # torch.func transform
+    cfg = _cfgs("lm_zipf")[1]
+    assert torch.equal(model.loss_fn(p, batch, cfg, remat=True),
+                       model.loss_fn(p, batch, cfg))
     with pytest.raises(NotImplementedError, match="torch.func"):
-        model.loss_fn(p, batch, _cfgs("lm_zipf")[1], remat=True)
+        torch.func.grad(lambda q: model.loss_fn(q, batch, cfg,
+                                                remat=True))(p)
 
 
 # ------------------------------------------------------------ rope, sdpa

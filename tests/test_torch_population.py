@@ -483,12 +483,14 @@ def test_chunked_executor_joins_a_ragged_tail():
 
 
 def test_multi_device_mesh_is_not_ported():
+    # a multi-rank mesh is a torch.distributed DeviceMesh (held in
+    # tests/test_torch_mesh.py); anything else that is not None or 1 raises
     class Mesh:
         def size(self):
             return 4
 
     for backend in ("shard_map", "sharded"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             make_cohort_executor(ExecutorConfig(backend=backend, mesh=Mesh()))
     one = make_cohort_executor(ExecutorConfig(backend="sharded", mesh=1))
     assert torch.equal(one(torch.sin, torch.ones(3)), torch.sin(
