@@ -33,7 +33,7 @@ to 0 just before it and read just after:
 Then the buffered-asynchronous runtime (``fed.async_runtime``, 10
 clients, 5 buffered of 10 in flight, the async quickstart's latency
 model, 3 flushes), one client a dispatch: ``fedpac_soap`` at ViT-Tiny
-width (K=10; its server saved after flush 2 with ``CheckpointManager``,
+width (K=5; its server saved after flush 2 with ``CheckpointManager``,
 restored bitwise into a fresh CUDA template, and its trace continued from
 the saved tracer identity), ``fedpac_sophia`` on the qblock wire with
 error feedback and ``max_staleness=1`` (discarded arrivals restored into
@@ -101,10 +101,15 @@ SOAP at ``state_dtype`` bf16 and Sophia, 3 steps each, their launches a
 step asserted; ``remat`` against none: the same loss, and at most half
 the memory for the loss and gradients; the reduced table against the
 CPU port), ``make_fed_round_step`` on the
-unreduced LLaMA-60M (8 clients x 2 steps, dense and with the qblock
-delta: one ``quantize`` launch; the reduced table against the CPU port),
-``launch.train.main`` on LLaMA-60M for 3 rounds (trace validated,
-checkpoint restored), and, each in a fresh process, ``launch.dryrun`` at
+unreduced LLaMA-60M at its default ``remat=True`` (8 clients x 2 steps,
+dense and with the qblock delta: one ``quantize`` launch; the reduced
+table against the CPU port), ``launch.train.main`` on LLaMA-60M for 3
+rounds (trace validated, checkpoint restored), and, each in a fresh
+process, ``make_fed_round_step`` on the unreduced LLaMA-350M (the
+cohort's loss-and-gradient memory with remat at most half of that
+without, the same loss; a 4-client round at remat, its launches
+asserted; the reduced table at remat against the CPU port),
+``launch.dryrun`` at
 full width on the 256-rank fake pod mesh (SmolLM-360M x ``train_4k``,
 Mixtral-8x22B x ``decode_32k``: host work on fake tensors, no kernel)
 and the CNN ``fedpac_soap`` round through the ``shard_map`` executor over
@@ -149,7 +154,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 S_VIT = 5                   # 10 clients x participation 0.5
-ROUNDS = 3
+ROUNDS = 2                  # 3 until the LLaMA-350M phase came (time)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM FP32 (non-tensor-core), published
 VIT_TINY = dict(patch=4, d_model=192, layers=12, heads=3)   # DeiT-Ti
@@ -204,7 +209,7 @@ ASYNC_SEED = 5
 ASYNC_KW = dict(buffer_size=5, concurrency=10, staleness_mode="poly",
                 staleness_alpha=0.5)
 ASYNC_LATENCY = dict(heterogeneity=1.5, jitter=0.5, dropout=0.05)
-ASYNC_SOAP_K = 10
+ASYNC_SOAP_K = 5            # 10 until the LLaMA-350M phase came (time)
 # the Sophia and CNN async paths take K=5: the flush's count of launches
 # and the CPU reference's time are what they check, not K
 ASYNC_K = 5
@@ -382,7 +387,9 @@ TRAIN_STEP_LAUNCHES = {"muon": {"matmul_fused": 15, "adam_moments": 4},
 STEP_ATOL, STEP_RTOL = 1e-4, 5e-4
 STEP_LOSS_TOL = 1e-3
 # make_fed_round_step on the unreduced LLaMA-60M (f32): 8 clients x 2
-# local steps x 2 sequences of 256 tokens, fedpac_soap; the cohort steps
+# local steps x 2 sequences of 256 tokens, fedpac_soap, at the default
+# remat=True (every layer of every client recomputed in the backward,
+# under the cohort's torch.func transforms); the cohort steps
 # together, so a round is 2 steps of 5 matmul_fused and 11 adam_moments;
 # the qblock delta wire adds one grouped quantize launch (its roundtrip's
 # encode).  Against the CPU port on the reduced table with SPD-warm-started
@@ -390,6 +397,13 @@ STEP_LOSS_TOL = 1e-3
 # may land one int8 level apart, ~1e-4 of a param here, so 1e-3
 FED_ROUND = dict(clients=8, local_steps=2, micro=2, seq=256)
 FED_QBLOCK_ATOL = 1e-3
+# make_fed_round_step on the unreduced LLaMA-350M (f32), fedpac_soap with
+# SOAP at state_dtype bf16 (the reference dry-run's): the cohort's loss
+# and gradients at REMAT_CLIENTS clients with and without remat (remat
+# must need at most half the memory above resident), then a whole round
+# at remat=True of FED_ROUND_350M; micro sequences of seq tokens a step
+FED_ROUND_350M = dict(clients=4, local_steps=2, micro=8, seq=256)
+REMAT_CLIENTS = 2
 # launch.train.main on the unreduced LLaMA-60M with fedpac_soap, its
 # defaults otherwise (8 clients at participation 0.5, K=5, batch 8, seq 64)
 TRAIN_ROUNDS = 3
@@ -471,7 +485,8 @@ def fresh_phase(name):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, f"{name}.json")
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--phase", name, path], check=True)
+                        "--phase", name, path], check=True,
+                       env=PHASE_ENV.get(name))
         with open(path) as f:
             out = json.load(f)
     log(f"{name} (a fresh process): {time.perf_counter() - t0:.1f} s")
@@ -2229,7 +2244,7 @@ def lm_paths(total):
     """LLaMA-60M ``fedpac_soap`` (3 rounds), ``fedpac_sophia`` and
     ``fedpac_muon`` (2 rounds each) at full width, then the tiny
     ``lm_zipf`` GPU vs the CPU path (``fedpac_soap`` at eps=1e-3 and
-    ``fedpac_sophia`` with host-drawn probes, 3 rounds).  Adds each
+    ``fedpac_sophia`` with host-drawn probes, ``ROUNDS`` rounds).  Adds each
     kernel's launches to ``total``; returns the LM paths' own."""
     from repro_torch.api import build_experiment, materialize
     from repro_torch.convert import params_from_numpy, params_to_numpy
@@ -3248,6 +3263,134 @@ def fed_round_llama60m(total):
     return found
 
 
+def fed_round_llama350m(dev):
+    """``launch.steps.make_fed_round_step`` on the unreduced LLaMA-350M
+    with ``fedpac_soap`` (SOAP at ``state_dtype`` bf16): (a) the memory
+    that the cohort's loss and gradients (``client_round``'s ``vmap`` of
+    ``grad_and_value``) take above resident at ``REMAT_CLIENTS`` clients,
+    with and without remat, the same loss; (b) a whole round at
+    ``remat=True`` (``FED_ROUND_350M``, dense wire), its launches
+    asserted; (c) the reduced table at ``remat=True`` on the card against
+    the CPU port.  Returns the launches of (b) and (c)."""
+    from repro_torch import configs, optim
+    from repro_torch.core.engine import make_cohort_executor
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    c, k = FED_ROUND_350M["clients"], FED_ROUND_350M["local_steps"]
+    micro, s = FED_ROUND_350M["micro"], FED_ROUND_350M["seq"]
+    cfg = configs.get_config("llama-350m")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (c * k * micro, s + 1),
+                        generator=gen, device=dev)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    log(f"fed_round llama-350m: {sum(x.numel() for x in tree_leaves(params)):,}"
+        f" parameters, {cfg.num_layers} layers, d {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}")
+
+    # (a) one local step's loss and gradients of REMAT_CLIENTS clients,
+    # as client_round computes them: stacked params resident first
+    n = REMAT_CLIENTS
+    x = tree_map(lambda p: p.expand(n, *p.shape).clone(), params)
+    xb = {name: b[:n * micro].reshape(n, micro, s)
+          for name, b in batch.items()}
+    cohort = make_cohort_executor(None)
+    out = {}
+    for remat in (False, True):
+        loss_fn = ST.make_loss_fn(cfg, remat=remat)
+
+        def loss_and_grads():
+            grads, loss = cohort(lambda p, b: torch.func.grad_and_value(
+                loss_fn)(p, b), x, xb)
+            return loss.mean()
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(loss_and_grads())
+        torch.cuda.synchronize()
+        out[remat] = (loss, torch.cuda.max_memory_allocated() - base,
+                      time.perf_counter() - t0)
+    del x, xb
+    (l0, g0, sec0), (l1, g1, sec1) = out[False], out[True]
+    if abs(l1 - l0) > 1e-6 * abs(l0):
+        raise AssertionError(f"fed_round llama-350m remat: loss {l1} vs {l0}")
+    log(f"fed_round llama-350m remat: {n} clients x {micro} x {s} tokens, "
+        f"loss {l1:.6f} = {l0:.6f}; the cohort's loss and gradients "
+        f"{g1 / 2**30:.3f} GiB above resident with remat, "
+        f"{g0 / 2**30:.3f} GiB without (ratio {g1 / g0:.3f}); "
+        f"{sec1:.2f} s and {sec0:.2f} s (host clock to a sync, first call)")
+    if not g1 <= 0.5 * g0:
+        raise AssertionError(f"fed_round llama-350m: remat saves too little: "
+                             f"{g1} bytes above resident with remat, {g0} "
+                             f"without")
+
+    # (b) a whole round at remat=True
+    found = collections.Counter()
+    opt = optim.make("soap", state_dtype="bfloat16")
+    fn = ST.make_fed_round_step(cfg, opt, lr=optim.DEFAULT_LR["soap"],
+                                clients=c, local_steps=k,
+                                algorithm="fedpac_soap")
+    theta = opt.get_precond(opt.init(params))
+    gg = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_p, new_th, new_g, loss = fn(params, theta, gg, batch, 0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    label = "fed_round llama-350m fedpac_soap remat"
+    want = {"matmul_fused": 5 * k, "adam_moments": 11 * k}
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, want {w}")
+    if not math.isfinite(float(loss)) or not all(
+            torch.isfinite(t).all() for t in tree_leaves(
+                (new_p, new_th, new_g))):
+        raise AssertionError(f"{label}: non-finite")
+    log(f"{label}: {c} clients x {k} steps x {micro} x {s} tokens, "
+        f"{sec:.2f} s (host clock to a sync, first call), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss "
+        f"{float(loss):.4f}, launches " + json.dumps(launches))
+    found.update(launches)
+    del params, batch, gg, theta, new_p, new_th, new_g, fn, opt
+
+    # (c) the reduced table at remat=True, the card against the CPU port
+    rcfg = configs.get_reduced("llama-350m")
+    gen = torch.Generator().manual_seed(5)
+    cpu_p = M.init_params(rcfg, gen)
+    tok = torch.randint(0, rcfg.vocab_size, (c * k * 2, 65), generator=gen)
+    cpu_b = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    cpu_g = tree_map(torch.zeros_like, cpu_p)
+    opt = optim.make("soap", eps=CNN_EPS)
+    theta = spd_theta(opt, cpu_p, 6)
+    wrappers = reset_launches()
+    res = {}
+    for d in ("cpu", "cuda"):
+        fn = ST.make_fed_round_step(rcfg, opt, lr=1e-2, clients=c,
+                                    local_steps=k, algorithm="fedpac_soap",
+                                    remat=True)
+        res[d] = fn(*(tree_map(lambda t: t.to(d), tr) for tr in
+                      (cpu_p, theta, cpu_g, cpu_b)))
+    label = "fed_round reduced llama-350m remat"
+    if abs(float(res["cuda"][3]) - float(res["cpu"][3])) > TABLE_TOL:
+        raise AssertionError(f"{label}: loss {res['cuda'][3]} vs "
+                             f"{res['cpu'][3]}")
+    step_agrees(label, rcfg, {name: v[:4] for name, v in cpu_b.items()},
+                res["cpu"][0], res["cuda"][0], STEP_ATOL, STEP_RTOL)
+    found.update(read_launches(wrappers))
+    return {"launches": dict(found)}
+
+
 def train_llama60m(total):
     """``launch.train.main`` on the unreduced LLaMA-60M with
     ``fedpac_soap`` for ``TRAIN_ROUNDS`` rounds, traced and checkpointed
@@ -3574,10 +3717,16 @@ def smollm_kernel_rows(dev):
     return dict(errs=errs, timings=timings)
 
 
+# fresh_phase's environment for a phase, where it is not this process's:
+# LLaMA-350M's round takes the card's memory to within a few GB, where
+# the caching allocator's fixed segments fragment
+PHASE_ENV = {"fed_round llama-350m": {
+    **os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}}
 # the phases run by fresh_phase: each traces the card
 PHASES = {"serve": lambda dev: serve_smollm(),
           "smollm_kernel_rows": smollm_kernel_rows,
           "dryrun": dryrun_pod, "mesh executor": mesh_executor,
+          "fed_round llama-350m": fed_round_llama350m,
           **{f"serve {arch}": (lambda dev, a=arch, n=layers, c=count:
                                serve_table(a, c, n))
              for arch, layers, count in ZOO_SERVE}}
@@ -3624,6 +3773,9 @@ def main():
     for arch, _, _ in ZOO_SERVE:
         fresh_phase(f"serve {arch}")
     smol_rows = fresh_phase("smollm_kernel_rows")
+    # LLaMA-350M's 4-client round holds ~70 GB: it runs while this
+    # process holds next to nothing on the card
+    fed350 = fresh_phase("fed_round llama-350m")
     gen = torch.Generator(device=dev).manual_seed(0)
     leaves = ([((m, n, S_VIT), leaf_inputs(m, n, S_VIT, dev, gen))
                for m, n in VIT_LEAVES]
@@ -3674,6 +3826,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launch_paths(launches)
+    for k, n in fed350["launches"].items():
+        launches[k] += n
 
     meta = {
         "adam_moments": dict(

@@ -2,11 +2,14 @@
 (counterpart of ``repro/launch/steps.py``).
 
 train_step  — one FedPAC local step: grad -> UpdateState -> P_Theta(g) ->
-              correction mix with g_G (Eq. 9), with plain autograd (so
-              ``remat`` works, Sophia's Hessian-vector product included).
+              correction mix with g_G (Eq. 9), with plain autograd
+              (Sophia's Hessian-vector product by double backward).
 fed_round   — a full Alg. 2 round: C client groups x K local steps (the
-              port's cohort ``client_round`` under a cohort executor) +
-              parameter/Theta aggregation.
+              port's cohort ``client_round`` under a cohort executor,
+              its gradients from ``torch.func``) + parameter/Theta
+              aggregation.
+Both take ``remat`` (default True, the reference's): each layer is
+recomputed in the backward (``models.transformer``).
 prefill/decode — the serving paths.
 
 The reference's ``unroll`` and ``layer_constraint`` are XLA knobs and are
@@ -110,7 +113,7 @@ def make_train_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
 
 def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
                         beta: float = 0.5, clients: int = 8,
-                        local_steps: int = 2, remat: bool = False,
+                        local_steps: int = 2, remat: bool = True,
                         seq_shard: bool = False, batch_axes=("data",),
                         algorithm=None, transport=None,
                         executor: Optional[ExecutorConfig] = None):
@@ -125,17 +128,8 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
     the delta and Theta uploads through their codecs' roundtrips before
     aggregation; the step keeps no state, so error feedback is rejected.
     ``executor`` maps the cohort onto the device (default ``vmap``).
-
-    The clients run under ``torch.func`` (``client_round``), which the
-    per-layer checkpoint of ``remat`` does not compose with: the default
-    is ``remat=False`` (the reference's is True), and ``remat=True``
-    raises."""
-    if remat:
-        raise NotImplementedError(
-            "make_fed_round_step(remat=True): the cohort's gradients come "
-            "from torch.func (core.client.client_round), whose grad/vjp do "
-            "not support the saved-tensor hooks of torch.utils.checkpoint; "
-            "remat works in make_train_step")
+    ``remat`` recomputes every layer of every client in the backward,
+    under the cohort's ``torch.func`` transforms."""
     spec = resolve(algorithm) if algorithm is not None else None
     align = spec.align if spec is not None else True
     if spec is not None:
@@ -148,15 +142,16 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
         raise ValueError(
             "error feedback needs per-client residual state — use the fed "
             "runtimes (build_round_fn) or pass error_feedback=False")
-    loss_fn = make_loss_fn(cfg, remat=False, seq_shard=seq_shard,
+    loss_fn = make_loss_fn(cfg, remat=remat, seq_shard=seq_shard,
                            batch_axes=batch_axes)
     run = LocalRunConfig(lr=lr, local_steps=local_steps, beta=beta,
                          align=align)
     agg_cfg = AggregationConfig(lr=lr, local_steps=local_steps, align=align)
     cohort_exec = make_cohort_executor(executor)
 
-    def fed_round(params, theta, g_global, batch, seed=0):
-        """``seed`` seeds Sophia's probes (the reference's round key)."""
+    def fed_round(params, theta, g_global, batch, seed=0, probe_fn=None):
+        """``seed`` seeds Sophia's probes (the reference's round key);
+        ``probe_fn(k)`` replaces them (``client_round``'s)."""
         def split(x):  # (B, ...) -> (C, K, B/(C*K), ...)
             micro = x.shape[0] // (clients * local_steps)
             return x.reshape(clients, local_steps, micro, *x.shape[1:])
@@ -164,7 +159,7 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
         batches = {k: split(v) for k, v in batch.items() if v is not None}
         deltas, thetas, loss = client_round(
             loss_fn, opt, run, params, theta, g_global, batches,
-            cohort_exec, seed=seed)
+            cohort_exec, seed=seed, probe_fn=probe_fn)
         if transport is not None:
             deltas = transport.delta.roundtrip(deltas)
             if align:

@@ -10,14 +10,25 @@ as a loop over the slices ``p_stack[i]``: the gradient of a stacked leaf
 comes back as that one stacked leaf, so SOAP and Muon see the reference's
 batched ``(layers, m, n)`` matrices (and ``(layers, E, m, n)`` expert
 stacks), and their grouped launches count the same.  ``remat`` (the
-reference's ``jax.checkpoint`` around each layer) runs each layer under
-the non-reentrant ``torch.utils.checkpoint``: the backward keeps only
-the layer's input and recomputes the layer, and a second derivative
-(Sophia's Hessian-vector product by double backward) recomputes it
-again.  It works under plain autograd, the single-client train step's
-(``launch.steps``); ``torch.func``'s ``grad``/``vjp`` do not take the
-saved-tensor hooks that the checkpoint rests on, so under a ``torch.func``
-transform (the cohort path of ``core.client``) ``remat=True`` raises.
+reference's ``jax.checkpoint`` around each layer) keeps only each layer's
+input and recomputes the layer in the backward, by one of two routes
+behind the one flag:
+
+* under plain autograd (the single-client train step of ``launch.steps``
+  and the dry-run's DTensors) each layer runs under the non-reentrant
+  ``torch.utils.checkpoint``; a second derivative (Sophia's
+  Hessian-vector product by double backward) recomputes it again;
+* under a ``torch.func`` transform (the cohort path of ``core.client``:
+  ``vmap`` of ``grad``, and ``jvp`` of ``grad`` for Sophia), whose
+  ``grad``/``vjp`` do not take the checkpoint's saved-tensor hooks, each
+  layer is a ``_LayerRemat`` function that saves its inputs only.  Its
+  ``backward`` recomputes the layer and takes ``torch.func.grad`` of its
+  dot with the cotangent inside ``torch.no_grad()``, so that the
+  enclosing ``grad`` records no graph of the recompute (with one, every
+  layer's recompute would stay alive to the end); its ``jvp`` recomputes
+  under ``torch.func.jvp``; its ``vmap`` rule is generated.  That
+  backward cannot itself be differentiated by a second reverse pass,
+  which the cohort path never takes.
 
 Decode caches are stacked per group like the weights, one ``(layers,
 ...)`` leaf a buffer: K/V (or MLA's latents) for attention, the O(1)
@@ -40,7 +51,7 @@ from repro_torch.models.layers import (
     Box, Initializer, apply_mlp, apply_norm, constrain, init_mlp, init_norm,
     unbox,
 )
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 ATTN_KINDS = ("attn", "swa", "local_attn")
 
@@ -155,6 +166,67 @@ def layer_forward(p, x, positions, cfg: ModelConfig, kind: str,
     return x, new_cache, aux
 
 
+def _layer_fn(spec, positions):
+    """``(h, *leaves) -> (x, aux)``: one layer as a function of its input
+    and its flat weights; ``spec`` is ``(cfg, kind, is_moe, template)``,
+    the template the layer's weight tree with placeholder leaves."""
+    cfg, kind, is_moe, template = spec
+
+    def fn(h, *leaves):
+        return layer_forward(tree_unflatten(template, leaves), h, positions,
+                             cfg, kind, is_moe)[::2]
+    return fn
+
+
+class _LayerRemat(torch.autograd.Function):
+    """One rematerialised layer under ``torch.func``: ``apply(x,
+    positions, spec, *leaves) -> (x, aux)``, keeping only its inputs;
+    ``positions`` and ``spec`` get no gradient."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, positions, spec, *leaves):
+        return _layer_fn(spec, positions)(x, *leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, positions, spec, *leaves = inputs
+        ctx.spec = spec
+        ctx.save_for_backward(x, positions, *leaves)
+        ctx.save_for_forward(x, positions, *leaves)
+
+    @staticmethod
+    def backward(ctx, dx, daux):
+        x, positions, *leaves = ctx.saved_tensors
+        fn = _layer_fn(ctx.spec, positions)
+
+        def dot(*args):     # <fn(args), (dx, daux)>: its gradient is the vjp
+            y, aux = fn(*args)
+            return torch.sum(y * dx) + aux * daux
+
+        # torch.func.grad runs its own backward with grad mode on, so the
+        # ops take the formulas that forward-mode AD can differentiate,
+        # as on the plain path (the gradients come out bitwise equal),
+        # and frees the recompute's graph when it returns; a vjp's
+        # pullback under no_grad takes other formulas (silu_backward has
+        # no forward-mode rule), and one with create_graph=True keeps
+        # the recompute alive
+        with torch.no_grad():
+            grads = torch.func.grad(dot, argnums=tuple(
+                range(len(leaves) + 1)))(x, *leaves)
+        return grads[0], None, None, *grads[1:]
+
+    @staticmethod
+    def jvp(ctx, dx, _positions, _spec, *dleaves):
+        x, positions, *leaves = ctx.saved_tensors
+        primals = (x, *leaves)
+        tangents = tuple(torch.zeros_like(a) if t is None else t
+                         for a, t in zip(primals, (dx, *dleaves)))
+        return torch.func.jvp(_layer_fn(ctx.spec, positions), primals,
+                              tangents)[1]
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, ring: bool = False, device="cpu"):
     if kind in ATTN_KINDS:
@@ -212,13 +284,7 @@ def backbone_forward(params, x, positions, cfg: ModelConfig, *, caches=None,
     """x: (B,S,D) embeddings.  Returns (hidden, new_caches, aux_sum);
     ``new_caches`` is ``caches`` (updated in place), None without."""
     remat = remat and caches is None
-    if remat and torch._C._functorch.peek_interpreter_stack() is not None:
-        raise NotImplementedError(
-            "remat=True runs each layer under torch.utils.checkpoint, whose "
-            "saved-tensor hooks torch.func's grad/vjp do not support: use "
-            "remat with plain autograd (launch.steps.make_train_step), not "
-            "under a torch.func transform (the cohort path of "
-            "core.client.client_round)")
+    under_func = torch._C._functorch.peek_interpreter_stack() is not None
     # a DTensor x (the dry-run's meshes): every layer's input, and its
     # gradient, is held in x's layout at entry (the batch's), as the
     # reference's XLA propagation keeps it
@@ -230,6 +296,12 @@ def backbone_forward(params, x, positions, cfg: ModelConfig, *, caches=None,
         for i in range(length):
             p_i = tree_map(lambda a: a[i], p_stack)
             x = constrain(x, layout)
+            if remat and under_func:
+                x, aux = _LayerRemat.apply(
+                    x, positions, (cfg, kind, is_moe, tree_map(
+                        lambda a: 0, p_i)), *tree_leaves(p_i))
+                aux_total = aux_total + aux
+                continue
             if remat:
                 x, aux = checkpoint(
                     lambda h, p=p_i, k=kind, m=is_moe: layer_forward(

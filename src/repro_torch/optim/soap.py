@@ -51,11 +51,14 @@ EIG_METHODS = ("qr", "ns")
 def _eig_refresh(pairs, method: str):
     """Eigenvectors(P, Q) for every (P, Q) of ``pairs``: one power
     iteration, then QR (the paper's Alg. 4) matrix by matrix, or
-    Newton–Schulz over all of them in one grouped call."""
-    prods = [torch.matmul(p_mat, q) for p_mat, q in pairs]
+    Newton–Schulz over all of them in one grouped call.  QR takes the
+    pairs one at a time from an iterable and yields each result, so that
+    a pair's operands and product live only for its own QR."""
     if method == "ns":
-        return newton_schulz_group(prods)
-    return [torch.linalg.qr(s)[0] for s in prods]
+        return newton_schulz_group([torch.matmul(p_mat, q)
+                                    for p_mat, q in pairs])
+    return (torch.linalg.qr(torch.matmul(p_mat, q))[0]
+            for p_mat, q in pairs)
 
 
 def _is_state_leaf(x):
@@ -128,32 +131,44 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                 if key in st:
                     problems.append((lhs, rhs, st[key].to(f32), 1 - b2, b2))
                     slots.append((i, key))
-        for (i, key), x in zip(slots, matmul_fused_group(problems)):
-            new[i][key] = x.to(sd)
+        # the f32 casts of the factors, and the results (views of one
+        # arena), are dropped once used: at LLaMA-350M x 4 clients each
+        # set is 13 GB at state_dtype bf16; so are the refresh's operands
+        # and the rotations' f32 eigenbases and outputs below
+        outs = matmul_fused_group(problems)
+        del problems
+        for j, (i, key) in enumerate(slots):
+            new[i][key], outs[j] = outs[j].to(sd), None
         # 2. the scheduled eigenbasis refresh, every side of every leaf
         if step % precond_freq == 0:
             sides = [(st, q, f) for st in new
                      for q, f in (("QL", "L"), ("QR", "R")) if q in st]
-            qs = _eig_refresh([(st[f].to(f32), st[q].to(f32))
-                               for st, q, f in sides], eig_method)
-            for (st, q, _), q_new in zip(sides, qs):
-                st[q] = q_new.to(sd)
-        # the eigenbases as f32 operands of the four rotation phases
-        qf = [{k: st[k].to(f32) for k in ("QL", "QR") if k in st}
-              for st in new]
+            qs = iter(_eig_refresh(((st[f].to(f32), st[q].to(f32))
+                                    for st, q, f in sides), eig_method))
+            for st, q, _ in sides:
+                st[q] = next(qs).to(sd)
+
+        def f32_side(key):
+            """One side's eigenbases as f32 operands, cast for the phase
+            that reads them and dropped after it."""
+            return [{key: st[key].to(f32)} if key in st else {}
+                    for st in new]
         # 3-4. G' = Q_L^T G Q_R
-        rot = _phase(gs, qf, "QL", lambda q, g: (q.transpose(-1, -2), g))
-        rot = _phase(rot, qf, "QR", lambda q, g: (g, q))
+        rot = _phase(gs, f32_side("QL"), "QL",
+                     lambda q, g: (q.transpose(-1, -2), g))
+        rot = _phase(rot, f32_side("QR"), "QR", lambda q, g: (g, q))
         # 5. bias-corrected Adam in the rotated basis (t = step + 1):
         #    moments restart from zero every federated round
-        ns = []
-        for g_rot, st in zip(rot, new):
-            n, st["M"], st["V"] = adam_moments(
-                g_rot, st["M"], st["V"], b1=b1, b2=b2, eps=eps, step=step)
-            ns.append(n)
+        ns = [None] * len(new)
+        for i, st in enumerate(new):
+            ns[i], st["M"], st["V"] = adam_moments(
+                rot[i], st["M"], st["V"], b1=b1, b2=b2, eps=eps, step=step)
+        del rot      # each phase's outputs are views of one arena
         # 6-7. D = Q_L N Q_R^T
-        ds = _phase(ns, qf, "QL", lambda q, n: (q, n))
-        ds = _phase(ds, qf, "QR", lambda q, n: (n, q.transpose(-1, -2)))
+        ds = _phase(ns, f32_side("QL"), "QL", lambda q, n: (q, n))
+        del ns
+        ds = _phase(ds, f32_side("QR"), "QR",
+                    lambda q, n: (n, q.transpose(-1, -2)))
         return ds, new
 
     def update(grads, state, params, step: int, lead: int = 0,

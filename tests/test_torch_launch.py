@@ -9,10 +9,13 @@ SOAP at ``state_dtype`` f32 and bf16 (eps 1e-3) and Sophia at ``step=1``
 warm-starts from a full-rank SPD L/R on both sides, so the step-0 QR
 refresh is well posed (``tests/test_torch_soap.py`` says why a
 rank-deficient one is not).  The fed round runs on the reduced LLaMA
-with ``fedpac_soap`` on the dense and the qblock wire.  The reference
-side is one small jitted program a case (eight compiles, ~26 s in all):
-eagerly it took 63 s, and the cases joined into three programs took
-longer to compile (~90 s) than the eight apart.
+with ``fedpac_soap`` on the dense and the qblock wire and with
+``fedpac_sophia`` (the reference's probes injected), held against the
+reference's round at its default ``remat=True``; the port's round runs
+at either ``remat`` (on the SOAP wires) or at ``remat=True`` (Sophia).
+The reference side is one small jitted program a case (nine compiles):
+eagerly the train steps took 63 s, and the cases joined into three
+programs took longer to compile (~90 s) than apart.
 
 Tolerances:
   * loss: 2e-5 absolute (the LM logits' bound, tests/test_torch_lm.py).
@@ -31,9 +34,12 @@ Tolerances:
     two sides' f32 deltas straddle a rounding boundary; params and g_G
     within one level of the largest block (2e-4 here).
   * remat: 1e-6 relative on loss and params (the same arithmetic
-    recomputed).
+    recomputed); in the fed round, 1e-6 of each leaf's largest entry
+    (g_G's over lr), since Sophia's HVP tangents are recomputed in
+    another order.
 """
 import functools
+import inspect
 import json
 
 import jax
@@ -54,10 +60,12 @@ from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import transport as T
 from repro_torch.core.client import LocalRunConfig
+from repro_torch.core.engine import ExecutorConfig
 from repro_torch.launch import steps, train
+from repro_torch.models import model
 from repro_torch.obs import validate_jsonl
 from repro_torch.utils.tree import (
-    tree_flatten_with_path, tree_leaves,
+    tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten,
 )
 
 RTOL, ATOL = 1e-4, 2e-5
@@ -258,32 +266,149 @@ def _transport(mod, wire, **cfg):
         mod.Dense(), error_feedback=False)
 
 
-def _reference_fed_round(wire):
-    """The reference's round on ``wire``, jitted (its qblock through the
-    plain ``ref.py`` path, not Pallas interpret)."""
+def _theta(jopt, p, algo):
+    """SOAP: full-rank SPD L/R; Sophia: a positive diagonal h."""
+    if algo == "fedpac_soap":
+        return _spd_theta(jopt, p, 11)
+    r = np.random.default_rng(11)
+    return {"h": jax.tree.map(lambda x: np.abs(0.1 * r.standard_normal(
+        x.shape)).astype(np.float32), p)}
+
+
+def _opt(mod, algo):
+    return mod.make("soap", eps=1e-3) if algo == "fedpac_soap" else \
+        mod.make("sophia")
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_fed_round(wire, algo="fedpac_soap"):
+    """The reference's round at its default ``remat=True`` on ``wire``,
+    jitted (its qblock through the plain ``ref.py`` path, not Pallas
+    interpret), from the round key ``jax.random.key(0)``."""
     jcfg, cfg, p, batch, gg, clients, k = _fed_inputs()
-    jopt = jax_optim.make("soap", eps=1e-3)
-    theta = _spd_theta(jopt, p, 11)
+    jopt = _opt(jax_optim, algo)
+    theta = _theta(jopt, p, algo)
     fn = jax_steps.make_fed_round_step(
-        jcfg, jopt, remat=False, clients=clients, local_steps=k,
-        transport=_transport(JT, wire, use_pallas=False), **FED_KW)
+        jcfg, jopt, remat=True, clients=clients, local_steps=k,
+        transport=_transport(JT, wire, use_pallas=False),
+        **dict(FED_KW, algorithm=algo))
     out = jax.jit(fn)(p, theta, gg, batch, jax.random.key(0))
     return out, (cfg, p, theta, batch, gg, clients, k)
 
 
-@pytest.mark.parametrize("wire", WIRES)
-def test_fed_round_matches_reference(wire):
-    (jp, jth, jg, jloss), (cfg, p, theta, batch, gg, clients, k) = \
-        _reference_fed_round(wire)
-    tfn = steps.make_fed_round_step(
-        cfg, optim.make("soap", eps=1e-3), clients=clients, local_steps=k,
-        transport=_transport(T, wire), **FED_KW)
-    tp, tth, tg, tloss = tfn(_t(p), _t(theta), _t(gg), _t(batch))
+def _reference_probes(clients, k_steps, like):
+    """Stacked (S, ...) probes of step 0 of the reference's round with key
+    ``jax.random.key(0)``: round key -> S clients -> K steps -> leaves
+    (``repro.core.client.hutchinson_estimate``'s split order), in the
+    port's leaf order (the same: dict keys sorted)."""
+    shapes = [tuple(x.shape) for x in tree_leaves(like)]
+
+    def one(key):
+        keys = jax.random.split(jax.random.split(key, k_steps)[0],
+                                len(shapes))
+        return [jax.random.rademacher(kk, sh).astype(jnp.float32)
+                for kk, sh in zip(keys, shapes)]
+    leaves = jax.vmap(one)(jax.random.split(jax.random.key(0), clients))
+    return tree_unflatten(like, [torch.from_numpy(np.array(x))
+                                 for x in leaves])
+
+
+def _check_fed_round(want, got, wire):
+    jp, jth, jg, jloss = want
+    tp, tth, tg, tloss = got
     assert abs(float(tloss) - float(jloss)) <= LOSS_TOL
     atol = 5e-5 if wire == "dense" else 2e-4
     _assert_close(jp, tp, "params", atol=atol)
     _assert_close(jg, tg, "g_global", atol=atol / LR)
     _assert_close(jth, tth, "theta", atol=atol)
+
+
+@pytest.mark.parametrize("wire,remat", [
+    pytest.param(w, r, id=w + ("-remat" if r else ""))
+    for w in WIRES for r in (False, True)])
+def test_fed_round_matches_reference(wire, remat):
+    """The port's round at either ``remat`` against the reference's at
+    its default (remat recomputes the same arithmetic: one oracle)."""
+    want, (cfg, p, theta, batch, gg, clients, k) = _reference_fed_round(
+        wire)
+    tfn = steps.make_fed_round_step(
+        cfg, optim.make("soap", eps=1e-3), clients=clients, local_steps=k,
+        transport=_transport(T, wire), remat=remat, **FED_KW)
+    _check_fed_round(want, tfn(_t(p), _t(theta), _t(gg), _t(batch)), wire)
+
+
+def test_fed_round_sophia_remat_matches_reference():
+    """``fedpac_sophia`` at ``remat=True``: step 0's Hessian-vector
+    product (``jvp`` of ``grad``) goes through the checkpoint's ``jvp``
+    and recomputing ``backward``, with the reference's probes."""
+    want, (cfg, p, theta, batch, gg, clients, k) = _reference_fed_round(
+        "dense", "fedpac_sophia")
+    tfn = steps.make_fed_round_step(
+        cfg, optim.make("sophia"), clients=clients, local_steps=k,
+        **dict(FED_KW, algorithm="fedpac_sophia"))
+    like = _t(p)
+    probes = _reference_probes(clients, k, like)
+
+    def probe_fn(step):
+        assert step == 0                      # hessian_freq 10, K = 2
+        return probes
+    _check_fed_round(want, tfn(like, _t(theta), _t(gg), _t(batch),
+                               probe_fn=probe_fn), "dense")
+
+
+# the MoE and Mamba tables step with AdamW: SOAP's refresh of their
+# expert stacks cost ~10 s a round here and holds nothing of remat
+REMAT_CASES = {"llama-60m": ("fedpac_soap", "fedpac_sophia"),
+               "mixtral-8x22b": ("fedpac_adamw",),
+               "falcon-mamba-7b": ("fedpac_adamw",)}
+
+
+@pytest.mark.parametrize("arch,algo,backend", [
+    (a, g, b) for a, algos in REMAT_CASES.items() for g in algos
+    for b in ("vmap", "chunked")])
+def test_fed_round_remat_equals_no_remat(arch, algo, backend):
+    """The port's round at ``remat=True`` against ``remat=False`` under
+    the ``vmap`` and ``chunked`` executors: the MoE's ragged products
+    and the Mamba scan inside the recompute, and Sophia's HVP through
+    the checkpoint's ``jvp``.  Gradients come out bitwise; the HVP's
+    tangents are recomputed in another order (~5e-7 of a leaf's largest
+    entry apart, hence a bound relative to that entry), and Sophia starts, as in the reference test above, from
+    an aligned positive h: from h = 0 its direction clip(m / max(h, eps))
+    is a ratio of two near-zero numbers for an element that neither the
+    gradient nor the curvature reaches, which any rounding moves."""
+    _, cfg = _cfgs(arch)
+    p = model.init_params(cfg, torch.Generator().manual_seed(0))
+    r = np.random.default_rng(1)
+    clients, k = 3, 2
+    tok = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                      (clients * k, S + 1)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    gg = tree_map(lambda x: 0.01 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(5)), p)
+    ex = ExecutorConfig(backend, chunk_size=2)
+    opt = optim.make("soap", eps=1e-3) if algo == "fedpac_soap" else \
+        optim.make(algo.split("_")[1])
+    theta = None
+    if algo == "fedpac_soap":
+        theta = tree_map(lambda x: torch.from_numpy(_spd(
+            r, x.shape[:-2], x.shape[-1])), opt.get_precond(opt.init(p)))
+    elif algo == "fedpac_sophia":
+        theta = tree_map(lambda x: torch.from_numpy(np.abs(
+            0.1 * r.standard_normal(x.shape)).astype(np.float32)),
+            opt.get_precond(opt.init(p)))
+    out = [steps.make_fed_round_step(
+        cfg, opt, lr=LR, clients=clients, local_steps=k, algorithm=algo,
+        remat=remat, executor=ex)(p, theta, gg, batch, seed=3)
+        for remat in (False, True)]
+    (p0, th0, g0, l0), (p1, th1, g1, l1) = out
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0)
+    # 1e-6 of each leaf's largest entry; g_G is the params' move over lr
+    # (one ulp of a param is ~1e-7 of g_G's scale), so its bound is the
+    # params' over LR, as the reference test's atol / LR
+    for a, b in zip(tree_leaves((p1, th1)), tree_leaves((p0, th0))):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    for a, b, w in zip(tree_leaves(g1), tree_leaves(g0), tree_leaves(p0)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(w.abs().max()) / LR
 
 
 def test_fed_round_keeps_the_reference_errors():
@@ -293,16 +418,15 @@ def test_fed_round_keeps_the_reference_errors():
              JT.Transport(JT.resolve_codec("qblock"), JT.Dense())),
             (steps, cfg, optim.make("soap"),
              T.Transport(T.resolve_codec("qblock"), T.Dense()))):
-        extra = {"remat": False}
         with pytest.raises(ValueError, match="beta='auto'"):
             mod.make_fed_round_step(c, o, lr=1e-2, beta="auto",
-                                    algorithm="fedpac_soap", **extra)
+                                    algorithm="fedpac_soap")
         with pytest.raises(ValueError, match="error feedback"):
-            mod.make_fed_round_step(c, o, lr=1e-2, transport=tr, **extra)
-    # the cohort runs under torch.func: remat is a stated limit there
-    with pytest.raises(NotImplementedError, match="torch.func"):
-        steps.make_fed_round_step(cfg, optim.make("soap"), lr=1e-2,
-                                  remat=True)
+            mod.make_fed_round_step(c, o, lr=1e-2, transport=tr)
+    # remat defaults to the reference's (True)
+    default = {mod: inspect.signature(mod.make_fed_round_step)
+               .parameters["remat"].default for mod in (jax_steps, steps)}
+    assert default[steps] is default[jax_steps] is True
 
 
 def test_local_run_config_beta_matches_reference():

@@ -204,14 +204,15 @@ def test_param_tree_and_matrix_leaves():
     p = model.init_params(_cfgs("lm_zipf")[1], torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    # remat: the same loss under plain autograd, a stated limit under a
-    # torch.func transform
+    # remat: the same loss under plain autograd, and the same gradients
+    # under a torch.func transform (the cohort path's checkpoint)
     cfg = _cfgs("lm_zipf")[1]
     assert torch.equal(model.loss_fn(p, batch, cfg, remat=True),
                        model.loss_fn(p, batch, cfg))
-    with pytest.raises(NotImplementedError, match="torch.func"):
-        torch.func.grad(lambda q: model.loss_fn(q, batch, cfg,
-                                                remat=True))(p)
+    grads = [torch.func.grad(lambda q, r=r: model.loss_fn(
+        q, batch, cfg, remat=r))(p) for r in (False, True)]
+    for a, b in zip(tree_leaves(grads[1]), tree_leaves(grads[0])):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------ rope, sdpa

@@ -388,30 +388,36 @@ TWO_RANKS = """
                                 .manual_seed(n))
                 return a @ a.transpose(-1, -2) / n + 0.5 * torch.eye(n)
             out = {}
-            for name, ex in [
-                    ("vmap", None),
-                    ("shard_map", ExecutorConfig("shard_map", mesh=mesh)),
-                    ("sharded", ExecutorConfig("sharded", chunk_size=1,
-                                               mesh=mesh))]:
-                opt = optim.make("soap", eps=1e-3)
-                fn = steps.make_fed_round_step(
-                    cfg, opt, lr=1e-2, clients=4, local_steps=2,
-                    algorithm="fedpac_soap", executor=ex)
-                theta = tree_map(spd, opt.get_precond(opt.init(p)))
-                out[name] = fn(p, theta, gg, batch)
+            for remat in (False, True):    # remat: the per-layer checkpoint
+                for name, ex in [
+                        ("vmap", None),
+                        ("shard_map", ExecutorConfig("shard_map", mesh=mesh)),
+                        ("sharded", ExecutorConfig("sharded", chunk_size=1,
+                                                   mesh=mesh))]:
+                    opt = optim.make("soap", eps=1e-3)
+                    fn = steps.make_fed_round_step(
+                        cfg, opt, lr=1e-2, clients=4, local_steps=2,
+                        algorithm="fedpac_soap", executor=ex, remat=remat)
+                    theta = tree_map(spd, opt.get_precond(opt.init(p)))
+                    out[name, remat] = fn(p, theta, gg, batch)
+
+            def diffs(a, b):
+                return {
+                    "loss_equal": bool(torch.equal(a[3], b[3])),
+                    "max_param_diff": max(
+                        float((x - y).abs().max()) for x, y in zip(
+                            tree_leaves(a[0]), tree_leaves(b[0]))),
+                    "max_theta_rel_diff": max(
+                        float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip(tree_leaves(a[1]),
+                                        tree_leaves(b[1])))}
             res = {}
             for name in ("shard_map", "sharded"):
-                res[name] = {
-                    "loss_equal": bool(torch.equal(out[name][3],
-                                                   out["vmap"][3])),
-                    "max_param_diff": max(
-                        float((a - b).abs().max()) for a, b in zip(
-                            tree_leaves(out[name][0]),
-                            tree_leaves(out["vmap"][0]))),
-                    "max_theta_rel_diff": max(
-                        float((a - b).abs().max() / b.abs().max())
-                        for a, b in zip(tree_leaves(out[name][1]),
-                                        tree_leaves(out["vmap"][1])))}
+                for remat in (False, True):
+                    res[f"{name}{'_remat' if remat else ''}"] = diffs(
+                        out[name, remat], out["vmap", remat])
+            res["vmap_remat_vs_none"] = diffs(out["vmap", True],
+                                              out["vmap", False])
             try:
                 from repro_torch.core.engine import make_cohort_executor
                 make_cohort_executor(ExecutorConfig("shard_map", mesh=mesh))(
@@ -450,7 +456,8 @@ def test_two_rank_shard_map_and_sharded_equal_the_vmap_round(tmp_path):
     line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
     ranks = json.loads(line[-1][len("RESULT "):])
     assert ranks[0] == ranks[1]           # every rank holds the cohort
-    for name in ("shard_map", "sharded"):
+    for name in ("shard_map", "sharded", "shard_map_remat",
+                 "sharded_remat", "vmap_remat_vs_none"):
         r = ranks[0][name]
         assert r["loss_equal"], name
         assert r["max_param_diff"] <= 1e-6, (name, r)
