@@ -56,12 +56,13 @@ LLaMA-60M (``configs/llama_60m.py``, unreduced, registered through
 256, batch 16, 8 clients at participation 0.25, K=5 — ``fedpac_soap`` 3
 rounds (5 ``matmul_fused`` and 11 ``adam_moments`` a step, the untrained
 loss at its expectation, the loss falling), ``fedpac_sophia`` and
-``fedpac_muon`` 2 rounds (1 ``sophia_update``; 15 ``matmul_fused`` and
-4 ``adam_moments`` a step) — with the three kernels also held against
-their plain versions at its shapes and ``matmul_fused``/``adam_moments``
-timed over one SOAP step; the tiny ``lm_zipf`` against the CPU path; and
-``examples/traffic_quickstart.py``'s stream (diurnal arrivals, churn,
-anytime eval, a hot-swap to fedavg halfway) on ViT-Tiny ``fedpac_soap``,
+``fedpac_muon`` 2 rounds (1 ``sophia_update``; 1 ``newton_schulz``, 0
+``matmul_fused`` and 4 ``adam_moments`` a step) — with the three
+kernels also held against their plain versions at its shapes and
+``matmul_fused``/``adam_moments`` timed over one SOAP step; the tiny
+``lm_zipf`` against the CPU path; and ``examples/traffic_quickstart.py``'s
+stream (diurnal arrivals, churn, anytime eval, a hot-swap to fedavg
+halfway) on ViT-Tiny ``fedpac_soap``,
 checkpointed after flush 2 and restored into a freshly built experiment
 that must continue to the same history, and on the CNN against the CPU
 path (the same event stream, metrics at SOAP's CNN tolerances).
@@ -75,7 +76,10 @@ held against a full forward over the prompt and the generated tokens, its
 prefill and decode timed with CUDA events and one decode step traced
 (device-busy share); and ``matmul_fused``/``adam_moments`` held against
 their plain versions and timed over one SOAP step at SmolLM-360M's
-shapes (the kernels line's ``*@smollm-360m`` rows).  Four more fresh
+shapes (the kernels line's ``*@smollm-360m`` rows), and
+``newton_schulz`` held against its plain version and timed over one Muon
+step of every SmolLM-360M matrix leaf (``newton_schulz@smollm-360m``).
+Four more fresh
 processes serve the rest of the model zoo the same way, f32 at full
 width: Falcon-Mamba-7B (7,272,665,088 parameters) and RecurrentGemma-2B
 (2,894,574,080) unreduced through ``launch.serve.main``, and
@@ -120,8 +124,9 @@ the per-rank slicing and all-gather, which only a run of two or more
 ranks reaches (``tests/test_torch_mesh.py``, over gloo on the CPU).
 
 Each path fails if one of its kernels was never launched, and unless
-SOAP's step is 5 ``matmul_fused`` launches (plus 15 a Newton–Schulz
-refresh), Muon's step 15 (three grouped products a Newton–Schulz step),
+SOAP's step is 5 ``matmul_fused`` launches (plus one ``newton_schulz``
+launch a Newton–Schulz refresh), Muon's step one ``newton_schulz``
+launch and no ``matmul_fused``,
 Sophia's step one ``sophia_update`` launch and a qblock round 2
 ``quantize`` launches (the delta and theta encodes) and 3
 ``dequant_accumulate`` launches (the delta flush and theta's two; 1 with
@@ -130,8 +135,8 @@ low-rank merged GEMM).  On the paths added with the low-rank wire the
 round's ``upload_bytes`` must equal ``comm_bytes_per_round()``.  The
 CNN runs are repeated on the CPU (plain versions) from the same weights
 (and, for Sophia, the same Hutchinson probes), and the histories must
-agree.  The Newton–Schulz composition is checked product by product
-against ``matmul_fused``'s plain version and as a whole against its own.
+agree.  The Newton–Schulz kernel is held against its plain version and
+run twice, bitwise equal.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure,
@@ -199,7 +204,7 @@ MUON_LIGHT = dict(delta_codec="qblock", theta_codec="lowrank_svd+qblock",
 # are <= 0.3; the quintic map can grow a roundoff by up to 3.4445 a step
 NS_TOL = 1e-4
 CUDA_SOURCES = ("matmul_fused.cu", "sophia_update.cu", "qblock.cu",
-                "fused_agg.cu")
+                "fused_agg.cu", "newton_schulz.cu")
 # the buffered-async runtime: examples/async_quickstart.py's latency model
 # with 5 of 10 in-flight clients buffered a flush; the runtime's seed 5
 # makes dropouts happen in 3 flushes (and, with max_staleness=1,
@@ -366,15 +371,17 @@ ZOO_ROUNDS = 2
 # its table dtype (bf16) at batch 8, seq 256, 3 steps an optimizer (step 0
 # refreshes SOAP's basis and Sophia's curvature); the launches a step:
 # SOAP 5 grouped matmul_fused and one adam_moments a leaf (7 rotated
-# matrices, 4 fallback), Muon 15 matmul_fused (5 Newton-Schulz steps of 3
-# grouped products) and one adam_moments a fallback leaf, Sophia one
-# sophia_update
+# matrices, 4 fallback), Muon one newton_schulz (all 5 steps over every
+# matrix leaf), no matmul_fused and one adam_moments a fallback leaf,
+# Sophia one sophia_update
 TRAIN_STEP = dict(batch=8, seq=256, steps=3)
 TRAIN_STEP_OPTS = {"muon": {}, "soap": {"state_dtype": "bfloat16"},
                    "sophia": {}}
-TRAIN_STEP_LAUNCHES = {"muon": {"matmul_fused": 15, "adam_moments": 4},
-                       "soap": {"matmul_fused": 5, "adam_moments": 11},
-                       "sophia": {"sophia_update": 1}}
+TRAIN_STEP_LAUNCHES = {"muon": {"newton_schulz": 1, "matmul_fused": 0,
+                                "adam_moments": 4},
+                       "soap": {"matmul_fused": 5, "adam_moments": 11,
+                                "newton_schulz": 0},
+                       "sophia": {"sophia_update": 1, "newton_schulz": 0}}
 # the reduced table GPU vs the CPU port, f32: the matrix leaves within
 # five times the CPU parity test's 2e-5 + 1e-4 relative
 # (tests/test_torch_launch.py) for two devices' sum orders, as TABLE_TOL
@@ -526,6 +533,13 @@ def build_kernels(dev):
         f"ring ({smem} B dynamic shared memory), {threads} threads, "
         f"{lib.resident_blocks()} persistent blocks on the card, "
         f"<= {max_p} problems per launch ({table} B table)")
+    from repro_torch.kernels.ns_ortho import ops as ns_ops
+    lib = ns_ops.kernel_library()
+    tile, bk, stages, threads, max_m, _, _, table, smem, _ = lib.config
+    log(f"newton_schulz: {tile}x{tile} tiles, BK {bk}, {stages}-stage "
+        f"cp.async ring ({smem} B dynamic shared memory), {threads} "
+        f"threads, {lib.resident_blocks()} persistent blocks on the card, "
+        f"<= {max_m} matrices per launch ({table} B table)")
     lib = sophia.kernel_library()
     threads, chunk, max_l, _, table = lib.config
     log(f"sophia_update: {lib.resident_blocks()} persistent blocks of "
@@ -938,60 +952,39 @@ def vit_matrix_leaves(dev, gen):
             for _ in range(VIT_TINY["layers"]) for m, n in VIT_LEAVES]
 
 
-def check_newton_schulz(mats):
-    """The composition on Muon's ViT-Tiny step: 15 ``matmul_fused``
-    launches, each of its products (captured with the kernel's own inputs)
-    within 2(k+2)u sum|a||b| of the plain ``matmul_fused``, and the output
-    within ``NS_TOL`` of ``newton_schulz_group_plain``."""
+def check_newton_schulz(mats, what=f"ViT-Tiny (S={S_VIT})"):
+    """The kernel on a Muon step's matrices: one ``newton_schulz`` launch
+    and no ``matmul_fused``, two calls bitwise equal, the output within
+    ``NS_TOL`` of ``newton_schulz_group_plain`` on the same inputs."""
     from repro_torch.kernels.ns_ortho import ops as ns_ops
-    from repro_torch.kernels.ns_ortho.kernel import (
-        matmul_fused, matmul_fused_group_plain,
-    )
-    captured = []
-    real = ns_ops.matmul_fused_group
-
-    def spy(problems):
-        outs = real(problems)
-        captured.append((problems, outs))
-        return outs
-
-    before = matmul_fused.launches
-    ns_ops.matmul_fused_group = spy
-    try:
-        got = ns_ops.newton_schulz_group(mats)
-    finally:
-        ns_ops.matmul_fused_group = real
-    made = matmul_fused.launches - before
-    if made != 15 or len(captured) != 15:
+    from repro_torch.kernels.ns_ortho.kernel import matmul_fused
+    before = (ns_ops.newton_schulz_group.launches, matmul_fused.launches)
+    got = ns_ops.newton_schulz_group(mats)
+    torch.cuda.synchronize()
+    made = (ns_ops.newton_schulz_group.launches - before[0],
+            matmul_fused.launches - before[1])
+    if made != (1, 0):
         raise AssertionError(f"newton_schulz on {len(mats)} matrices: "
-                             f"{made} launches in {len(captured)} group "
-                             "calls, want 15")
-    worst_ratio = 0.0
-    for problems, outs in captured:
-        for p, out, want in zip(problems, outs,
-                                matmul_fused_group_plain(problems)):
-            err, ratio = gemm_error(out, *p, want)
-            worst_ratio = max(worst_ratio, ratio)
-            if ratio > 1.0:
-                raise AssertionError(
-                    f"newton_schulz product {tuple(p[0].shape)} @ "
-                    f"{tuple(p[1].shape)} exceeds its bound: max err "
-                    f"{err:.3e}, err/bound {ratio:.3f}")
+                             f"{made[0]} newton_schulz and {made[1]} "
+                             "matmul_fused launches, want 1 and 0")
+    again = ns_ops.newton_schulz_group(mats)
     worst = 0.0
-    for g, x, want in zip(mats, got, ns_ops.newton_schulz_group_plain(mats)):
+    for g, x, x2, want in zip(mats, got, again,
+                              ns_ops.newton_schulz_group_plain(mats)):
         if x.shape != g.shape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"newton_schulz output {tuple(x.shape)} for "
                                  f"{tuple(g.shape)}: wrong shape or "
                                  "non-finite")
+        if not torch.equal(x, x2):
+            raise AssertionError(f"newton_schulz on {tuple(g.shape)}: two "
+                                 "calls differ")
         worst = max(worst, float((x - want).abs().max()))
     if worst > NS_TOL:
         raise AssertionError(f"newton_schulz vs plain: max |err| "
                              f"{worst:.3e} > {NS_TOL}")
-    log(f"newton_schulz on {len(mats)} ViT-Tiny matrices (S={S_VIT}): 15 "
-        f"launches; each of {sum(len(p) for p, _ in captured)} products "
-        f"within its bound (max err/bound {worst_ratio:.3f}, bound "
-        f"2(k+2)u sum|a||b|); output vs plain max |err| {worst:.3e} "
-        f"(tol {NS_TOL})")
+    log(f"newton_schulz on {len(mats)} {what} matrices: 1 launch, no "
+        f"matmul_fused; two calls bitwise equal; output vs plain max |err| "
+        f"{worst:.3e} (tol {NS_TOL})")
     return worst
 
 
@@ -1222,21 +1215,52 @@ def time_sophia_and_wire_kernels(vit_shapes, dev, gen):
     return out
 
 
-def time_newton_schulz(mats):
-    """One ViT-Tiny Muon step's orthogonalisation at S=5 (48 matrices, 5
-    steps): the composition as Muon runs it (15 grouped launches), its
-    plain version, and cuBLAS through ``torch.bmm``/``baddbmm`` (one call
-    a product, 720 calls), beside the card's bound for the same work
-    (each input read and each output written once; the products'
-    operations at the FP32 rate)."""
+def ns_flops(mats, steps=5):
+    """(the reference's FLOPs, the function's, the kernel's) for ``steps``
+    Newton–Schulz steps over ``mats``.  The reference's: X X^T (no
+    epilogue), then c A A + b A (a multiply and an FMA an element), then
+    B X + a X (one FMA an element), every product in full.  The
+    function's, the least work it needs: the same, but A and B, which are
+    symmetric, only on or above the diagonal (m (m + 1) / 2 entries each);
+    the bound counts these.  The kernel's: its tiles as it runs them, K
+    padded to its slices of 16, the symmetric products' upper-triangle
+    tiles only."""
+    from repro_torch.kernels.ns_ortho.ops import TILE
+    ref = need = run = 0
+    for g in mats:
+        m, n = sorted(g.shape[-2:])
+        s = g.numel() // (m * n)
+        ref += steps * s * (2 * m * m * n + 2 * m * m * m + 3 * m * m
+                            + 2 * m * m * n + 2 * m * n)
+        tri = m * (m + 1) // 2
+        need += steps * s * (2 * tri * n + tri * (2 * m + 3)
+                             + 2 * m * m * n + 2 * m * n)
+        tm, tn = -(-m // TILE), -(-n // TILE)
+        sym, full = tm * (tm + 1) // 2, tm * tn
+        kn, km = -(-n // 16) * 16, -(-m // 16) * 16
+        run += steps * s * TILE * TILE * (
+            2 * (sym * kn + sym * km + full * km) + 3 * sym + 2 * full)
+    return ref, need, run
+
+
+def time_newton_schulz(mats, what=f"ViT-Tiny (S={S_VIT})", reps=5):
+    """One Muon step's orthogonalisation of ``mats`` (5 steps): the kernel
+    as Muon runs it (one launch), its plain version, and cuBLAS through
+    ``torch.bmm``/``baddbmm`` (one call a product), beside the card's
+    bound for the function's work (each input read and each output
+    written once; the products' operations at the FP32 rate, the
+    symmetric A and B on or above the diagonal only: ``ns_flops``).  Also
+    the device time of the pre-scale alone (the kernel at 0 steps,
+    against PyTorch's norm and divide)."""
     from repro_torch.kernels.ns_ortho.ops import (
         NS_COEFFS, newton_schulz_group, newton_schulz_group_plain,
     )
     a, b, c = NS_COEFFS
+    wide = [(g.transpose(-1, -2) if g.shape[-2] > g.shape[-1] else g)
+            .reshape(-1, *sorted(g.shape[-2:])) for g in mats]
 
     def library():
-        for g in mats:
-            x = g.transpose(1, 2) if g.shape[1] > g.shape[2] else g
+        for x in wide:
             x = x / (torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
                      + 1e-7)
             for _ in range(5):
@@ -1244,32 +1268,47 @@ def time_newton_schulz(mats):
                 bb = torch.baddbmm(aa, aa, aa, beta=b, alpha=c)
                 x = torch.baddbmm(x, bb, x, beta=a)
 
-    flops = 0
-    for g in mats:
-        s, m, n = g.shape
-        m, n = min(m, n), max(m, n)
-        # X X^T (no epilogue), then c A A + b A (a multiply and an FMA
-        # an element), then B X + a X (one FMA an element)
-        flops += 5 * (2 * s * m * m * n
-                      + 2 * s * m * m * m + 3 * s * m * m
-                      + 2 * s * m * m * n + 2 * s * m * n)
+    flops, need, run = ns_flops(mats)
     bytes_ = 8 * sum(g.numel() for g in mats)
-    bound = max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    by = "bytes" if bytes_ / HBM_BYTES_PER_S > flops / FP32_FLOPS \
+    bound = max(bytes_ / HBM_BYTES_PER_S, need / FP32_FLOPS) * 1e3
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S > need / FP32_FLOPS \
         else "operations"
     fns = {"k": lambda: newton_schulz_group(mats),
            "p": lambda: newton_schulz_group_plain(mats), "l": library}
-    t = {k: timed(fn) for k, fn in fns.items()}
-    d = {k: device_ms(fn) for k, fn in fns.items()}
-    log(f"newton_schulz, one Muon step of ViT-Tiny (S={S_VIT}, {len(mats)} "
-        f"matrices, 5 steps, {flops / 1e9:.1f} GFLOP): grouped (15 launches) "
-        f"{t['k']:.3f} ms, plain {t['p']:.3f} ms, torch.bmm/baddbmm (720 "
-        f"calls) {t['l']:.3f} ms; device time {d['k']:.3f} / {d['p']:.3f} / "
-        f"{d['l']:.3f} ms; bound {bound:.3f} ms ({by})")
+    t = {k: timed(fn, reps=reps) for k, fn in fns.items()}
+    d = {k: device_ms(fn, floor_ms=bound) for k, fn in fns.items()}
+    pre = {"k": device_ms(lambda: newton_schulz_group(mats, steps=0)),
+           "l": device_ms(lambda: [x / (torch.linalg.vector_norm(
+               x, dim=(-2, -1), keepdim=True) + 1e-7) for x in wide])}
+    log(f"newton_schulz, one Muon step of {what} ({len(mats)} matrices, 5 "
+        f"steps, {flops / 1e9:.1f} GFLOP as the reference computes it, "
+        f"{need / 1e9:.1f} needed, {run / 1e9:.1f} run by the kernel): "
+        f"kernel (1 launch) {t['k']:.3f} ms, plain "
+        f"{t['p']:.3f} ms, torch.bmm/baddbmm ({15 * len(mats)} calls) "
+        f"{t['l']:.3f} ms; device time {d['k']:.3f} / {d['p']:.3f} / "
+        f"{d['l']:.3f} ms; bound {bound:.3f} ms ({by}): "
+        f"{100 * bound / d['k']:.0f}% of the bound by device time; the "
+        f"pre-scale alone {pre['k']:.3f} ms device (PyTorch's norm and "
+        f"divide {pre['l']:.3f})")
     return {"newton_schulz": dict(
         ms=t["k"], plain_ms=t["p"], library_ms=t["l"], bound_ms=bound,
         bound_by=by, device_ms=d["k"], plain_device_ms=d["p"],
-        library_device_ms=d["l"])}
+        library_device_ms=d["l"], gflop=flops / 1e9, bound_gflop=need / 1e9,
+        kernel_gflop=run / 1e9, prescale_device_ms=pre["k"],
+        library_prescale_device_ms=pre["l"])}
+
+
+def smollm_newton_schulz(dev):
+    """The kernel against its plain version and timed over one Muon step
+    of the unreduced SmolLM-360M: its 7 stacked matrix leaves (32 layers
+    each) in f32, momentum-like normals.  Returns the max |err| and the
+    timings."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mats = [torch.randn((SMOL_LAYERS, m, n), generator=gen, device=dev)
+            for m, n in SMOL_LEAVES]
+    what = f"SmolLM-360M ({SMOL_LAYERS} layers)"
+    err = check_newton_schulz(mats, what)
+    return dict(err=err, timings=time_newton_schulz(mats, what, reps=2))
 
 
 # -------------------------------------------------------------- main path
@@ -1286,12 +1325,14 @@ def vit_tiny_spec():
 def kernel_wrappers():
     from repro_torch.kernels.fused_agg.kernel import dequant_accumulate
     from repro_torch.kernels.ns_ortho.kernel import matmul_fused
+    from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
     from repro_torch.kernels.qblock.kernel import quantize
     from repro_torch.kernels.soap_rotate.kernel import adam_moments
     from repro_torch.kernels.sophia_update.kernel import sophia_update
     return {"adam_moments": adam_moments, "matmul_fused": matmul_fused,
             "sophia_update": sophia_update, "quantize": quantize,
-            "dequant_accumulate": dequant_accumulate}
+            "dequant_accumulate": dequant_accumulate,
+            "newton_schulz": newton_schulz_group}
 
 
 def run_experiment(label, exp, expect=(), finite=FINITE):
@@ -1438,37 +1479,36 @@ def main_paths(vit_shapes, cnn_shapes):
     soap_k = ("matmul_fused", "adam_moments")
     wire_k = ("sophia_update", "quantize", "dequant_accumulate")
     total = dict.fromkeys(kernel_wrappers(), 0)
-    # newton_schulz launches no kernel of its own: its row carries the
-    # matmul_fused launches of the Muon paths, where every matmul_fused
-    # launch is a Newton-Schulz product
-    total["newton_schulz"] = 0
 
     def drive(label, exp, expect, mf_step=5, ns_step=0, ns_refresh=0,
               dq_round=3):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
-        if ns_step and not mf_step:
-            total["newton_schulz"] += launches["matmul_fused"]
-        # SOAP's step is 5 grouped launches (the EMAs, 4 rotations), and a
-        # Newton–Schulz refresh (once a round at K = precond_freq = 10) 15
-        # more; Muon's step 15 (3 grouped products a Newton–Schulz step);
-        # Sophia's step one; a qblock round of an aligned algorithm
-        # encodes twice (delta, theta; a chain's qblock stage encodes its
-        # whole payload tree in one launch) and flushes 3 times (delta,
-        # theta twice; a lowrank_svd+qblock theta peels to the low-rank
-        # GEMM, so only the delta's)
+        # SOAP's step is 5 grouped matmul_fused launches (the EMAs, 4
+        # rotations), and a Newton–Schulz refresh (once a round at K =
+        # precond_freq = 10) one newton_schulz launch; Muon's step one
+        # newton_schulz launch (every matrix leaf, all 5 steps) and no
+        # matmul_fused (asserted 0); Sophia's step one; a qblock round of
+        # an aligned algorithm encodes twice (delta, theta; a chain's
+        # qblock stage encodes its whole payload tree in one launch) and
+        # flushes 3 times (delta, theta twice; a lowrank_svd+qblock theta
+        # peels to the low-rank GEMM, so only the delta's).  newton_schulz
+        # is checked on every path: 0 where neither Muon nor a "ns"
+        # refresh runs it
         steps = exp.fed.local_steps * exp.fed.rounds
-        ns = ns_step * steps + ns_refresh * exp.fed.rounds
+        checked = set(expect) | {"newton_schulz"} | (
+            {"matmul_fused"} if ns_step else set())
         for name, want, what in (
-                ("matmul_fused", mf_step * steps + ns,
-                 f"{mf_step + ns_step} per local step + {ns_refresh} per "
-                 "refresh"),
+                ("matmul_fused", mf_step * steps, f"{mf_step} per local step"),
+                ("newton_schulz",
+                 ns_step * steps + ns_refresh * exp.fed.rounds,
+                 f"{ns_step} per local step + {ns_refresh} per refresh"),
                 ("sophia_update", steps, "1 per local step"),
                 ("quantize", 2 * exp.fed.rounds, "2 per round"),
                 ("dequant_accumulate", dq_round * exp.fed.rounds,
                  f"{dq_round} per round")):
-            if name in expect and launches[name] != want:
+            if name in checked and launches[name] != want:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
                                      f"launches, want {want} ({what})")
         return hist
@@ -1511,22 +1551,23 @@ def main_paths(vit_shapes, cnn_shapes):
                          **cnn_kw)))
     compare_histories(label, ref, cnn_gpu, SOPHIA_TOL, SOPHIA_REL_TOL)
 
-    # Muon on the grouped Newton-Schulz composition, and SOAP's NS refresh
-    muon_k = ("matmul_fused", "adam_moments")
+    # Muon on the Newton-Schulz kernel, and SOAP's NS refresh
+    muon_k = ("newton_schulz", "adam_moments")
     for algo in ("local_muon", "fedpac_muon"):
         exp = build_experiment(algo, scenario=vit, participation=0.5,
                                rounds=ROUNDS)
         if exp.lr != 3e-2:
             raise AssertionError(f"{algo}: lr {exp.lr}, want Muon's 3e-2")
-        drive(f"vit_tiny {algo}", exp, muon_k, mf_step=0, ns_step=15)
+        drive(f"vit_tiny {algo}", exp, muon_k, mf_step=0, ns_step=1)
     drive("vit_tiny fedpac_soap eig_method=ns", build_experiment(
         "fedpac_soap", scenario=vit, participation=0.5, rounds=ROUNDS,
-        opt_kwargs={"eig_method": "ns"}), muon_k, ns_refresh=15)
+        opt_kwargs={"eig_method": "ns"}), soap_k + ("newton_schulz",),
+        ns_refresh=1)
 
     # the CNN against the CPU path: Muon (its stem conv flattens tall, so
     # it is orthogonalised as its transpose), then the SGD baselines
     for algo, expect, counts in (
-            ("fedpac_muon", muon_k, dict(mf_step=0, ns_step=15)),
+            ("fedpac_muon", muon_k, dict(mf_step=0, ns_step=1)),
             ("fedavg", (), {}), ("fedcm", (), {})):
         label = f"cifar_like_cnn {algo}"
         cnn_gpu = drive(label, metrics_on_card(build_experiment(
@@ -1555,14 +1596,15 @@ def main_paths(vit_shapes, cnn_shapes):
                            **MUON_LIGHT)
     check_wire_bytes(label, exp, drive(
         label, exp, muon_k + ("quantize", "dequant_accumulate"), mf_step=0,
-        ns_step=15, dq_round=1))
+        ns_step=1, dq_round=1))
 
     # SCAFFOLD, FedPM and the low-rank Theta uploads on the CNN, against
     # the CPU path
     for algo, kw, expect, counts, tol in (
             ("scaffold", {}, (), {}, (FIRST_ORDER_TOL, FIRST_ORDER_REL_TOL)),
-            ("fedpm_soap", dict(opt_kwargs=FEDPM_OPT), soap_k,
-             dict(ns_refresh=15), (CNN_TOL, CNN_REL_TOL)),
+            ("fedpm_soap", dict(opt_kwargs=FEDPM_OPT),
+             soap_k + ("newton_schulz",), dict(ns_refresh=1),
+             (CNN_TOL, CNN_REL_TOL)),
             ("fedpac_soap", dict(theta_codec="power_sketch",
                                  svd_rank=CNN_SOAP_RANK,
                                  opt_kwargs={"eps": CNN_EPS}), soap_k, {},
@@ -1770,11 +1812,13 @@ def async_paths(total):
         label, exp, ("matmul_fused", "adam_moments"),
         after_flush=lambda e, sink, f: (checkpoint_and_resume(e, sink)
                                         if f == 2 else None))
-    # SOAP's step is 5 grouped launches over the one client's leaves
+    # SOAP's step is 5 grouped launches over the one client's leaves (its
+    # QR refresh launches no newton_schulz)
     if launches["matmul_fused"] != 5 * k * trained:
         raise AssertionError(f"{label}: {launches['matmul_fused']} "
                              f"matmul_fused launches, want 5 x {k} x "
                              f"{trained} trained dispatches")
+    no_newton_schulz(label, launches)
     for name, n in launches.items():
         total[name] += n
     del exp
@@ -1795,7 +1839,8 @@ def async_paths(total):
     # telemetry's Theta decode and a discard's restore are plain PyTorch)
     for name, want in (("sophia_update", k * trained),
                        ("quantize", 2 * trained),
-                       ("dequant_accumulate", 3 * ASYNC_FLUSHES)):
+                       ("dequant_accumulate", 3 * ASYNC_FLUSHES),
+                       ("newton_schulz", 0)):
         if launches[name] != want:
             raise AssertionError(f"{label}: {launches[name]} {name} "
                                  f"launches, want {want}")
@@ -1827,6 +1872,7 @@ def async_paths(total):
     if launches["matmul_fused"] != 5 * exp.fed.local_steps * trained:
         raise AssertionError(f"{label}: {launches['matmul_fused']} "
                              "matmul_fused launches")
+    no_newton_schulz(label, launches)
     for name, n in launches.items():
         total[name] += n
     ref, _, _, ref_sink = run_async(f"{label} (cpu reference)",
@@ -2148,7 +2194,8 @@ def population_paths(total, vit_shapes):
                          "dequant_accumulate"))
         for kname, want in (("matmul_fused", 5 * ASYNC_K * trained),
                             ("quantize", trained),
-                            ("dequant_accumulate", ASYNC_FLUSHES)):
+                            ("dequant_accumulate", ASYNC_FLUSHES),
+                            ("newton_schulz", 0)):
             if launches[kname] != want:
                 raise AssertionError(f"{label}: {launches[kname]} {kname} "
                                      f"launches, want {want}")
@@ -2277,11 +2324,13 @@ def lm_paths(total):
     lm = collections.Counter()
 
     def drive(label, algo, rounds, expect, per_step, **kw):
+        """``per_step``: each kernel's launches a local step, asserted
+        (0 included; newton_schulz 0 unless named)."""
         exp = metrics_on_card(build_experiment(
             algo, scenario=scn, rounds=rounds, **LM_FL, **kw))
         hist, launches = run_experiment(label, exp, expect, LM_FINITE)
         steps = exp.fed.local_steps * rounds
-        for name, per in per_step.items():
+        for name, per in {"newton_schulz": 0, **per_step}.items():
             if launches[name] != per * steps:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
                                      f"launches, want {per} x {steps} steps")
@@ -2304,11 +2353,13 @@ def lm_paths(total):
     # Hutchinson's jvp of grad through attention at step 0
     drive("llama-60m fedpac_sophia", "fedpac_sophia", 2,
           ("sophia_update",), {"sophia_update": 1})
-    # Muon: 15 matmul_fused a step (w_down's 1376 x 512 stack as
-    # transposed views), the fallback leaves through adam_moments
+    # Muon: one newton_schulz a step (w_down's 1376 x 512 stack read as
+    # its transpose) and no matmul_fused, the fallback leaves through
+    # adam_moments
     drive("llama-60m fedpac_muon", "fedpac_muon", 2,
-          ("matmul_fused", "adam_moments"),
-          {"matmul_fused": 15, "adam_moments": n_fallback})
+          ("newton_schulz", "adam_moments"),
+          {"newton_schulz": 1, "matmul_fused": 0,
+           "adam_moments": n_fallback})
     del scn
 
     tiny = materialize("lm_zipf", seed=0, device="cuda")
@@ -2329,7 +2380,7 @@ def lm_paths(total):
             algo, scenario=tiny, **kw)))
         gpu, launches = run_experiment(label, exp, tuple(per_step),
                                        LM_FINITE)
-        for name, per in per_step.items():
+        for name, per in {"newton_schulz": 0, **per_step}.items():
             if launches[name] != per * 5 * ROUNDS:
                 raise AssertionError(f"{label}: {launches[name]} {name}")
         lm.update(launches)
@@ -2439,7 +2490,8 @@ def run_traffic(label, exp, params, ckpt_dir=None):
     steps = TRAFFIC_K * soap
     counted = exp.device.type == "cuda"   # the CPU path launches none
     for name, want in (("matmul_fused", 5 * steps),
-                       ("adam_moments", len(tree_leaves(params)) * steps)):
+                       ("adam_moments", len(tree_leaves(params)) * steps),
+                       ("newton_schulz", 0)):
         if counted and launches[name] != want:
             raise AssertionError(f"{label}: {launches[name]} {name} "
                                  f"launches, want {want} ({soap} SOAP "
@@ -2960,7 +3012,8 @@ def zoo_training(total):
                                         ("matmul_fused", "adam_moments"),
                                         LM_FINITE)
         steps = exp.fed.local_steps * ZOO_ROUNDS
-        for name, per in (("matmul_fused", 5), ("adam_moments", n_leaves)):
+        for name, per in (("matmul_fused", 5), ("adam_moments", n_leaves),
+                          ("newton_schulz", 0)):
             if launches[name] != per * steps:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
                                      f"launches, want {per} x {steps} steps")
@@ -2985,6 +3038,14 @@ def reset_launches():
 
 def read_launches(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
+
+
+def no_newton_schulz(label, launches):
+    """A path with neither Muon nor SOAP's "ns" refresh launches no
+    newton_schulz."""
+    if launches["newton_schulz"] != 0:
+        raise AssertionError(f"{label}: {launches['newton_schulz']} "
+                             "newton_schulz launches, want 0")
 
 
 def spd_theta(opt, params, seed):
@@ -3041,7 +3102,8 @@ def train_step_smollm(total):
     their launches a step asserted; ``remat=True`` against ``remat=False``
     (the same loss, at most half the loss-and-gradient memory); then the
     reduced table on the card
-    against the CPU port.  Adds the launches to ``total``."""
+    against the CPU port.  Adds the launches to ``total``; returns the
+    unreduced steps' launches by optimizer."""
     from repro_torch import configs, optim
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as M
@@ -3059,6 +3121,7 @@ def train_step_smollm(total):
     gg = tree_map(lambda p: 1e-3 * torch.randn(
         p.shape, generator=gen, device="cuda"), params)
     found = collections.Counter()
+    unreduced = {}
     for name, kw in TRAIN_STEP_OPTS.items():
         opt = optim.make(name, **kw)
         fn = ST.make_train_step(cfg, opt, lr=optim.DEFAULT_LR[name])
@@ -3088,8 +3151,7 @@ def train_step_smollm(total):
                                                  tree_leaves(params))):
             raise AssertionError(f"{label}: params did not move")
         found.update(launches)
-        if name == "muon":   # the newton_schulz row's launches
-            total["newton_schulz"] += launches["matmul_fused"]
+        unreduced[name] = launches
         log(f"{label}: step ms (host clock to a sync) "
             + ", ".join(f"{x:.1f}" for x in ms) + f"; loss {float(loss):.4f}"
             f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -3177,7 +3239,7 @@ def train_step_smollm(total):
     found.update(read_launches(wrappers))
     for k, n in found.items():
         total[k] += n
-    return found
+    return unreduced
 
 
 def fed_round_llama60m(total):
@@ -3224,7 +3286,7 @@ def fed_round_llama60m(total):
         launches = read_launches(wrappers)
         label = f"fed_round llama-60m fedpac_soap {wire}"
         want = {"matmul_fused": 5 * k, "adam_moments": 11 * k,
-                "quantize": 1 if wire == "qblock" else 0}
+                "quantize": 1 if wire == "qblock" else 0, "newton_schulz": 0}
         for name, n in want.items():
             if launches[name] != n:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
@@ -3348,7 +3410,8 @@ def fed_round_llama350m(dev):
     sec = time.perf_counter() - t0
     launches = read_launches(wrappers)
     label = "fed_round llama-350m fedpac_soap remat"
-    want = {"matmul_fused": 5 * k, "adam_moments": 11 * k}
+    want = {"matmul_fused": 5 * k, "adam_moments": 11 * k,
+            "newton_schulz": 0}
     for name, w in want.items():
         if launches[name] != w:
             raise AssertionError(f"{label}: {launches[name]} {name} "
@@ -3419,7 +3482,8 @@ def train_llama60m(total):
         steps = 5 * TRAIN_ROUNDS
         if rc != 0 or len(hist) != TRAIN_ROUNDS:
             raise AssertionError(f"{label}: rc {rc}, {len(hist)} rounds")
-        for name, per in (("matmul_fused", 5), ("adam_moments", 11)):
+        for name, per in (("matmul_fused", 5), ("adam_moments", 11),
+                          ("newton_schulz", 0)):
             if launches[name] != per * steps:
                 raise AssertionError(f"{label}: {launches[name]} {name} "
                                      f"launches, want {per} x {steps} steps")
@@ -3530,9 +3594,11 @@ def mesh_executor(dev):
 
 
 def launch_paths(total):
-    """The launch layer's phases; adds their launches to ``total``."""
+    """The launch layer's phases; adds their launches to ``total``.
+    Returns the unreduced SmolLM-360M train steps' launches by
+    optimizer."""
     t0 = time.perf_counter()
-    train_step_smollm(total)
+    smol_steps = train_step_smollm(total)
     gc.collect()
     torch.cuda.empty_cache()
     fed_round_llama60m(total)
@@ -3542,6 +3608,7 @@ def launch_paths(total):
         for k, n in out["launches"].items():
             total[k] += n
     log(f"launch layer: {time.perf_counter() - t0:.1f} s")
+    return smol_steps
 
 
 # ------------------------------------------------------- SmolLM training
@@ -3645,7 +3712,8 @@ def smollm_training(total):
                              f"{sorted(drawn)}, want round 1 only")
     steps = exp.fed.local_steps * SMOL_ROUNDS
     for name, per in (("matmul_fused", 5),
-                      ("adam_moments", n_mat + n_fallback)):
+                      ("adam_moments", n_mat + n_fallback),
+                      ("newton_schulz", 0)):
         if launches[name] != per * steps:
             raise AssertionError(f"{label}: {launches[name]} {name} "
                                  f"launches, want {per} x {steps} steps")
@@ -3725,6 +3793,7 @@ PHASE_ENV = {"fed_round llama-350m": {
 # the phases run by fresh_phase: each traces the card
 PHASES = {"serve": lambda dev: serve_smollm(),
           "smollm_kernel_rows": smollm_kernel_rows,
+          "smollm_newton_schulz": smollm_newton_schulz,
           "dryrun": dryrun_pod, "mesh executor": mesh_executor,
           "fed_round llama-350m": fed_round_llama350m,
           **{f"serve {arch}": (lambda dev, a=arch, n=layers, c=count:
@@ -3773,6 +3842,7 @@ def main():
     for arch, _, _ in ZOO_SERVE:
         fresh_phase(f"serve {arch}")
     smol_rows = fresh_phase("smollm_kernel_rows")
+    smol_ns = fresh_phase("smollm_newton_schulz")
     # LLaMA-350M's 4-client round holds ~70 GB: it runs while this
     # process holds next to nothing on the card
     fed350 = fresh_phase("fed_round llama-350m")
@@ -3825,7 +3895,7 @@ def main():
         f"{time.perf_counter() - t_smol:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    launch_paths(launches)
+    smol_steps = launch_paths(launches)
     for k, n in fed350["launches"].items():
         launches[k] += n
 
@@ -3848,13 +3918,10 @@ def main():
         "dequant_accumulate": dict(
             route="cuda", source="src/repro_torch/kernels/csrc/fused_agg.cu",
             replaces="src/repro/kernels/fused_agg/kernel.py:39"),
-        # a composition of grouped matmul_fused launches (CUDA C++) with
-        # no launch of its own: its launches are matmul_fused's in the
-        # Muon paths, also counted in the matmul_fused row
         "newton_schulz": dict(
-            route="cuda", source="src/repro_torch/kernels/ns_ortho/ops.py",
-            replaces="src/repro/kernels/ns_ortho/ops.py:31",
-            launches_of="matmul_fused"),
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/newton_schulz.cu",
+            replaces="src/repro/kernels/ns_ortho/ops.py:31"),
     }
     kernels = [dict(name=name, **meta[name], launches=launches[name],
                     max_abs_err=errs[name], **timings[name])
@@ -3870,6 +3937,12 @@ def main():
                      launches=smol_launches[name],
                      max_abs_err=smol_errs[name], **smol_timings[name])
                 for name in ("matmul_fused", "adam_moments")]
+    # one SmolLM-360M Muon step's orthogonalisation, launched by its
+    # unreduced train steps
+    kernels.append(dict(
+        name="newton_schulz@smollm-360m", **meta["newton_schulz"],
+        launches=smol_steps["muon"]["newton_schulz"],
+        max_abs_err=smol_ns["err"], **smol_ns["timings"]["newton_schulz"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,6 +3,9 @@ version:
 
   ns_ortho/kernel.py      matmul_fused, matmul_fused_group  CUDA C++
                           (csrc/matmul_fused.cu: one grouped launch)
+  ns_ortho/ops.py         newton_schulz_group, newton_schulz  CUDA C++
+                          (csrc/newton_schulz.cu: the pre-scale and
+                          every quintic step of a list in one launch)
   soap_rotate/kernel.py   adam_moments  Triton
   soap_rotate/ops.py      soap_rotated_update, composed from the two
   sophia_update/kernel.py sophia_update, sophia_update_group  CUDA C++
@@ -12,7 +15,7 @@ version:
   fused_agg/kernel.py     dequant_accumulate, dequant_accumulate_group
                           CUDA C++ (csrc/fused_agg.cu: one grouped launch)
 
-The grouped kernels take a table of leaves by value (``grouped.py``,
-``csrc/grouped.cuh``).  Each wrapper counts its launches in
+The grouped kernels take a table of leaves or matrices by value
+(``grouped.py``, ``csrc/grouped.cuh``).  Each wrapper counts its launches in
 ``<wrapper>.launches``.
 """

@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ring.cuh"
+
 #ifndef MF_BM
 #define MF_BM 128
 #endif
@@ -69,9 +71,12 @@
 
 namespace {
 
+// the ring's 16-byte loaders and register fragments (ring.cuh, shared
+// with newton_schulz.cu)
+using namespace ring;
+
 constexpr int BM = MF_BM;
 constexpr int BN = MF_BN;
-constexpr int BK = 16;
 constexpr int TM = 8;
 constexpr int TN = 8;
 constexpr int TY = BM / TM;           // threads along m
@@ -81,7 +86,6 @@ constexpr int STAGES = 4;
 // Ask for 12 resident warps per SM (at most 168 registers a thread) where
 // the block is small enough; a 256-thread block gets the whole file.
 constexpr int MIN_BLOCKS = 384 / THREADS > 0 ? 384 / THREADS : 1;
-constexpr int PAD = 4;                // keeps rows 16-byte aligned
 constexpr int PARAM_LIMIT = 32764;    // bytes of kernel parameters (CUDA >= 12.1)
 
 constexpr int stage_floats(int x) {
@@ -128,91 +132,13 @@ struct Group {
 };
 static_assert(sizeof(Group) <= PARAM_LIMIT, "the table must fit the launch");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
-}
-
+// Where an operand's unit-stride axis takes no 16-byte copies (the CNN's
+// 108-byte rows): 4-byte copies through any strides.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(d), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// One operand's K-slices for this thread.  Element (x, kk) of the
-// operand lies at base + x * s_x + kk * s_k (x is m for lhs, n for rhs).
-// kc: the tile is stored [X][BK+PAD] (k contiguous, s_k == 1), else
-// [BK][X+PAD].  vec: 16-byte copies along the unit-stride axis, the ragged
-// end zero-filled by the copy's source size; their addresses and bounds
-// are planned once per tile (Plan), so a slice costs an add and a compare
-// per copy.  Otherwise 4-byte copies through any strides.
-struct Plan {
-  const float* src;   // this thread's first 16-byte run at k = 0
-  int64_t step;       // kc: elements between its runs; else the k stride
-  int lim_a, lim_b;   // kc: rows, k left; else k, x left (from its run)
-};
-
-template <int X>
-__device__ __forceinline__ Plan plan(const float* base, int64_t s_x,
-                                     int64_t s_k, int ext_x, int k, int x0,
-                                     bool kc, int tid) {
-  Plan p;
-  if (kc) {
-    const int r0 = tid / (BK / 4), c0 = (tid % (BK / 4)) * 4;
-    p.src = base + (x0 + r0) * s_x + c0;
-    p.step = (THREADS / (BK / 4)) * s_x;
-    p.lim_a = ext_x - x0 - r0;
-    p.lim_b = k - c0;
-  } else {
-    const int kk0 = tid / (X / 4), xo = (tid % (X / 4)) * 4;
-    p.src = base + kk0 * s_k + x0 + xo;
-    p.step = s_k;
-    p.lim_a = k - kk0;
-    p.lim_b = ext_x - x0 - xo;
-  }
-  return p;
-}
-
-template <int X>
-__device__ __forceinline__ void load_vec(const Plan& p, float* s, int k0,
-                                         bool kc, const float* safe,
-                                         int tid) {
-  constexpr int N = X * BK / 4 / THREADS;   // 16-byte runs per thread
-  if (kc) {
-    constexpr int RS = THREADS / (BK / 4);  // rows between runs
-    const int left = p.lim_b - k0;
-    const int nb = left > 0 ? 4 * min(left, 4) : 0;
-    float* d = s + (tid / (BK / 4)) * (BK + PAD) + (tid % (BK / 4)) * 4;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int bytes = i * RS < p.lim_a ? nb : 0;
-      cp_async16(d + i * RS * (BK + PAD),
-                 bytes ? p.src + i * p.step + k0 : safe, bytes);
-    }
-  } else {
-    constexpr int KS = THREADS / (X / 4);   // k-rows between runs
-    const int nb = p.lim_b > 0 ? 4 * min(p.lim_b, 4) : 0;
-    const float* src = p.src + k0 * p.step;
-    float* d = s + (tid / (X / 4)) * (X + PAD) + (tid % (X / 4)) * 4;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int bytes = k0 + i * KS < p.lim_a ? nb : 0;
-      cp_async16(d + i * KS * (X + PAD), bytes ? src + i * KS * p.step : safe,
-                 bytes);
-    }
-  }
 }
 
 template <int X>
@@ -238,30 +164,6 @@ __device__ __forceinline__ void load_scalar(float* s, const float* base,
 template <bool KC, int X, int T>
 __device__ __forceinline__ int reg_index(int t, int i) {
   return KC ? t + i * T : (i < 4 ? t * 4 + i : X / 2 + t * 4 + i - 4);
-}
-
-// Register fragments.  A [X][BK+PAD] tile gives 4 k-steps of a register
-// row per 128-bit load (f[q][i] = row i at k = kc + q); a [BK][X+PAD]
-// tile gives one k-step of 8 registers in two 128-bit loads.
-template <int T>
-__device__ __forceinline__ void load_frag_kc(const float* s, int t, int kc,
-                                             float (&f)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(
-        s + (t + i * T) * (BK + PAD) + kc);
-    f[0][i] = v.x; f[1][i] = v.y; f[2][i] = v.z; f[3][i] = v.w;
-  }
-}
-
-template <int X>
-__device__ __forceinline__ void load_frag_k(const float* s, int t, int kk,
-                                            float (&f)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(s + kk * (X + PAD) + t * 4);
-  const float4 hi = *reinterpret_cast<const float4*>(
-      s + kk * (X + PAD) + X / 2 + t * 4);
-  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
-  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
 }
 
 // A tile of the group: its problem (-1 past the group's end), batch entry,
@@ -315,20 +217,20 @@ __device__ __forceinline__ void load_next(const Group& g, const int* starts,
   const int flags = P.flags;
   const bool akc = flags & A_KC, bkc = flags & B_KC;
   if (ld.kt == 0) {
-    ld.a = plan<BM>(P.lhs + ld.t.b * P.l_sb, P.l_sm, P.l_sk, P.m, P.k,
+    ld.a = plan<BM, THREADS>(P.lhs + ld.t.b * P.l_sb, P.l_sm, P.l_sk, P.m, P.k,
                     ld.t.row0, akc, tid);
-    ld.b = plan<BN>(P.rhs + ld.t.b * P.r_sb, P.r_sn, P.r_sk, P.n, P.k,
+    ld.b = plan<BN, THREADS>(P.rhs + ld.t.b * P.r_sb, P.r_sn, P.r_sk, P.n, P.k,
                     ld.t.col0, bkc, tid);
   }
   float* as = As + ld.slot * A_STAGE;
   float* bs = Bs + ld.slot * B_STAGE;
   if (flags & A_VEC)
-    load_vec<BM>(ld.a, as, k0, akc, P.lhs, tid);
+    load_vec<BM, THREADS>(ld.a, as, k0, akc, P.lhs, tid);
   else
     load_scalar<BM>(as, P.lhs + ld.t.b * P.l_sb, P.l_sm, P.l_sk, P.m, P.k,
                     ld.t.row0, k0, akc, tid);
   if (flags & B_VEC)
-    load_vec<BN>(ld.b, bs, k0, bkc, P.rhs, tid);
+    load_vec<BN, THREADS>(ld.b, bs, k0, bkc, P.rhs, tid);
   else
     load_scalar<BN>(bs, P.rhs + ld.t.b * P.r_sb, P.r_sn, P.r_sk, P.n, P.k,
                     ld.t.col0, k0, bkc, tid);

@@ -13,8 +13,9 @@ runs in f32.
 
 Trees may carry ``lead`` leading batch dims (the cohort-stacked client
 axis).  One update orthogonalises every matrix leaf of every client in
-one ``newton_schulz_group`` call (three grouped ``matmul_fused`` calls a
-Newton–Schulz step), so a ViT-Tiny step is 15 ``matmul_fused`` launches.
+one ``newton_schulz_group`` call: one launch of the ``newton_schulz``
+kernel (``kernels/csrc/newton_schulz.cu``, all five steps) and no
+``matmul_fused`` launch a step.
 """
 from __future__ import annotations
 

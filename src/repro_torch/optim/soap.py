@@ -30,7 +30,7 @@ ViT-Tiny step is 5 launches of ``matmul_fused`` instead of 288.  The Adam
 fallback goes through ``adam_moments``.  The refresh product P @ Q stays
 a library call, as the reference leaves it to XLA; so does the QR.  The
 ``"ns"`` refresh orthogonalises every side of every matrix leaf in one
-``newton_schulz_group`` call: 15 more ``matmul_fused`` launches a refresh.
+``newton_schulz_group`` call: one ``newton_schulz`` launch a refresh.
 """
 from __future__ import annotations
 

@@ -28,10 +28,10 @@ Tolerances:
     and sum alone in client order, as the plain version does, and the
     carry tests hold it bitwise (carry or none, vectorized and ragged
     leaves, NaN in the carry).
-  * newton_schulz_group: each of its 15 products within the matmul_fused
-    bound above on the kernel's own inputs; the output within 1e-4 of
-    the plain composition (f32 against f64 of the same composition
-    differs by <= 8.4e-7 at ViT-Tiny shapes; entries are <= 0.3).
+  * newton_schulz_group (one launch of its own kernel): the output
+    within 1e-4 of the plain version (f32 against f64 of the same
+    iteration differs by <= 8.4e-7 at ViT-Tiny shapes; entries are
+    <= 0.3), and two calls bitwise equal.
   * Muon's step on the card against the same step on the CPU: 1e-4
     absolute + 1e-4 relative on directions (the Newton–Schulz output
     above, scaled by sqrt(rows/cols) <= 2) and 1e-5 max(1, |x|) on the
@@ -210,42 +210,65 @@ def test_matmul_fused_group_rejects_bad_problems(cuda):
                             (x.cpu(), x.cpu(), None, 1.0, 0.0)])
 
 
-def test_newton_schulz_group_kernel_matches_plain(cuda, monkeypatch):
-    """One ViT-Tiny block's four matrix leaves (w2 tall, so transposed) at
-    S=5, a CNN stem's (27, 8) and a 3-D expert stack: 15 launches, every
-    product within its bound, the output within 1e-4 of the plain
-    composition."""
-    gen = torch.Generator().manual_seed(23)
-    mats = [_randn(gen, *shape, dev=cuda) for shape in
+def _ns_inputs(gen, dev):
+    """Wide, tall (read as its transpose), square, 3-D and cohort-stacked
+    4-D inputs: one ViT-Tiny block's four matrix leaves at S=5 (w2 tall),
+    a CNN stem's (27, 8) (rows of 108 bytes), an expert stack (2, 3, 10,
+    24), a tall stack read through a non-mergeable view, and a bf16
+    leaf."""
+    mats = [_randn(gen, *shape, dev=dev) for shape in
             ((5, 192, 576), (5, 192, 192), (5, 192, 768), (5, 768, 192),
-             (2, 27, 8), (2, 3, 10, 24))]
+             (2, 27, 8), (2, 3, 10, 24), (130, 70))]
     mats[1][1] *= 100.0                  # a client 100x the others' norm
-    captured = []
-    real = ns_ops.matmul_fused_group
+    mats.append(_randn(gen, 4, 3, 40, 24, dev=dev)[:, 1:])   # a strided view
+    mats.append(_randn(gen, 2, 64, 96, dev=dev).to(torch.bfloat16))
+    return mats
 
-    def spy(problems):
-        outs = real(problems)
-        captured.append((problems, outs))
-        return outs
 
-    monkeypatch.setattr(ns_ops, "matmul_fused_group", spy)
-    before = matmul_fused.launches
+def test_newton_schulz_group_kernel_matches_plain(cuda):
+    """One launch of the newton_schulz kernel and none of matmul_fused;
+    the output within 1e-4 of the plain version (f32 against f64 of the
+    same iteration differs by <= 8.4e-7 at ViT-Tiny shapes; entries are
+    <= 0.3) and two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(23)
+    mats = _ns_inputs(gen, cuda)
+    before = (ns_ops.newton_schulz_group.launches, matmul_fused.launches)
     got = ns_ops.newton_schulz_group(mats)
     torch.cuda.synchronize()
-    assert matmul_fused.launches == before + 15
-    assert len(captured) == 15
-    for problems, outs in captured:
-        _assert_group_close(problems, outs)
+    assert (ns_ops.newton_schulz_group.launches,
+            matmul_fused.launches) == (before[0] + 1, before[1])
+    again = ns_ops.newton_schulz_group(mats)
     want = ns_ops.newton_schulz_group_plain([m.cpu() for m in mats])
-    for m, g, w in zip(mats, got, want):
-        assert g.shape == m.shape and g.is_cuda
+    for m, g, g2, w in zip(mats, got, again, want):
+        assert g.shape == m.shape and g.is_cuda and g.dtype == torch.float32
+        assert torch.equal(g, g2)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4, tuple(m.shape)
+
+
+def test_newton_schulz_group_splits_at_the_table_limit(cuda):
+    """A list above MAX_MATS takes one launch per MAX_MATS matrices, each
+    counted, and agrees with the plain version; bad inputs raise."""
+    gen = torch.Generator().manual_seed(19)
+    mats = [_randn(gen, 2, 5 + i % 7, 9 + i % 5, dev=cuda)
+            for i in range(ns_ops.MAX_MATS + 3)]
+    before = ns_ops.newton_schulz_group.launches
+    got = ns_ops.newton_schulz_group(mats, steps=3)
+    torch.cuda.synchronize()
+    assert ns_ops.newton_schulz_group.launches == before + 2
+    want = ns_ops.newton_schulz_group_plain([m.cpu() for m in mats], steps=3)
+    for g, w in zip(got, want):
         assert float((g.cpu() - w).abs().max()) <= 1e-4
+    x = torch.ones(3, 4, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ns_ops.newton_schulz_group([x, x.double()])
+    with pytest.raises(ValueError, match="several devices"):
+        ns_ops.newton_schulz_group([x, x.cpu()])
 
 
 def test_muon_step_on_the_card_matches_the_cpu_step(cuda):
     """Two local steps of Muon over a cohort-stacked ViT block (S=3) and
-    an Adam-fallback leaf: the card's step (15 launches a step) against
-    the same step on the CPU."""
+    an Adam-fallback leaf: the card's step (one newton_schulz launch a
+    step, no matmul_fused) against the same step on the CPU."""
     from repro_torch.optim import muon
 
     gen = torch.Generator().manual_seed(29)
@@ -267,12 +290,14 @@ def test_muon_step_on_the_card_matches_the_cpu_step(cuda):
     for k, g in enumerate(grads):
         out = {}
         for d in ("cpu", cuda):
-            before = matmul_fused.launches
+            before = (ns_ops.newton_schulz_group.launches,
+                      matmul_fused.launches)
             out[d], sts[d] = opt.update(to(g, d), sts[d], to(params, d), k,
                                         lead=1)
             if d == cuda:
                 torch.cuda.synchronize()
-                assert matmul_fused.launches == before + 15
+                assert (ns_ops.newton_schulz_group.launches,
+                        matmul_fused.launches) == (before[0] + 1, before[1])
         got_dir = to(out[cuda], "cpu")
         for a, v in out["cpu"].items():
             for b, want in v.items():

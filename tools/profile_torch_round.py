@@ -45,6 +45,7 @@ ROOT = os.path.dirname(HERE)
 # device-time groups, matched in order against kernel/operator names
 GROUPS = [
     ("matmul_fused kernel", ("matmul_fused",)),
+    ("newton_schulz kernel", ("newton_schulz",)),
     ("adam_moments kernel", ("adam_moments",)),
     ("sophia_update kernel", ("sophia_update",)),
     ("quantize kernel", ("qblock_quantize",)),
