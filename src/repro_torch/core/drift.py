@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.ops import is_dtensor
 from repro_torch.utils.tree import (
     path_str, tree_flatten_with_path, tree_leaves,
 )
@@ -33,6 +34,10 @@ def _centered(leaf):
 
 def _leaf_drift(leaf):
     c = _centered(leaf)
+    if is_dtensor(c):
+        # the dry-run's DTensors: flattening a leaf sharded on two dims
+        # gives a placement DTensor's ops do not take; sum over the dims
+        return torch.mean(torch.sum(c ** 2, dim=tuple(range(1, c.ndim))))
     return torch.mean(torch.sum(c.reshape(c.shape[0], -1) ** 2, dim=-1))
 
 

@@ -6,11 +6,8 @@ bind with ``ctypes``; nothing includes PyTorch's headers, so a build takes
 seconds.  Libraries land in ``build/repro_torch_kernels/`` at the root of
 the checkout (gitignored), named by a hash of the source, the shared
 ``csrc/*.cuh`` headers and the flags: a changed source builds anew, an
-unchanged one is reused.  ``defines``
-build a variant of a source (``-D`` macros, e.g. ``matmul_fused.cu``'s
-tile shape for ``tools/tune_matmul_tiles.py``); the wrappers load the
-plain build.  The build happens
-at first use, never at import, so CPU-only hosts import every module.
+unchanged one is reused.  The build happens at first use, never at
+import, so CPU-only hosts import every module.
 """
 from __future__ import annotations
 
@@ -40,32 +37,27 @@ def nvcc() -> str:
     return exe
 
 
-def _flags(defines=()) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(source: str, defines=()) -> Path:
+def library_path(source: str) -> Path:
     src = CSRC / source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(_flags(defines)).encode()).hexdigest()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
-def build(source: str, defines=()) -> tuple:
-    """Compile ``csrc/<source>`` (with ``-D`` ``defines``) unless its
-    hashed library exists.
+def build(source: str) -> tuple:
+    """Compile ``csrc/<source>`` unless its hashed library exists.
 
     Returns (library path, compiler log); the log holds ``ptxas -v``'s
     register and shared-memory report, empty when the library was reused.
     """
-    out = library_path(source, defines)
+    out = library_path(source)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / source)],
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")

@@ -3,8 +3,15 @@
 // register fragments of the 8x8 micro-tile.  A block of THREADS threads
 // stages K-slices of BK = 16 of an operand tile of X rows (or columns) in
 // shared memory, stored as the operand's unit-stride axis runs: [X][BK+PAD]
-// when k is contiguous ("kc"), else [BK][X+PAD].  Each thread owns an 8x8
-// register micro-tile; its fragments are read as 128-bit ld.shared.
+// floats when k is contiguous ("kc"), else [BK][X+PAD].  Each thread owns
+// an 8x8 register micro-tile; its fragments are read as 128-bit ld.shared.
+//
+// The loaders count in bytes: an operand of E-byte elements (4: f32; 2:
+// bf16, f16) is copied in 16-byte runs of 16/E elements, each landing at
+// the f32 place of its first element.  A 2-byte run (8 elements) so fills
+// the first half of its 32-byte f32 place, which matmul_fused.cu's
+// widening pass then fills in place; newton_schulz.cu reads f32 scratch
+// only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +24,7 @@ constexpr int PAD = 4;                // keeps shared rows 16-byte aligned
 
 // 16-byte copy through L2 only (.cg: never a stale L1 line); the bytes
 // past src_bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -34,61 +41,65 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One operand's K-slices for this thread.  Element (x, kk) of the
-// operand lies at base + x * s_x + kk * s_k.  kc: the tile is stored
-// [X][BK+PAD] (k contiguous, s_k == 1), else [BK][X+PAD] (s_x == 1).
-// 16-byte copies along the unit-stride axis, the ragged end zero-filled by
-// the copy's source size; their addresses and bounds are planned once per
-// tile, so a slice costs an add and a compare per copy.
+// operand lies at base + (x * s_x + kk * s_k) * E bytes.  kc: the tile is
+// stored [X][BK+PAD] (k contiguous, s_k == 1), else [BK][X+PAD] (s_x ==
+// 1).  16-byte copies along the unit-stride axis, the ragged end
+// zero-filled by the copy's source size; their addresses and bounds are
+// planned once per tile, so a slice costs an add and a compare per copy.
 struct Plan {
-  const float* src;   // this thread's first 16-byte run at k = 0
-  int64_t step;       // kc: elements between its runs; else the k stride
+  const char* src;    // this thread's first 16-byte run at k = 0
+  int64_t step;       // bytes: kc: between its runs; else the k stride
   int lim_a, lim_b;   // kc: rows, k left; else k, x left (from its run)
 };
 
-template <int X, int THREADS>
-__device__ __forceinline__ Plan plan(const float* base, int64_t s_x,
+template <int X, int THREADS, int E = 4>
+__device__ __forceinline__ Plan plan(const void* base, int64_t s_x,
                                      int64_t s_k, int ext_x, int k, int x0,
                                      bool kc, int tid) {
+  constexpr int V = 16 / E;   // elements of a 16-byte run
+  const char* b = static_cast<const char*>(base);
   Plan p;
   if (kc) {
-    const int r0 = tid / (BK / 4), c0 = (tid % (BK / 4)) * 4;
-    p.src = base + (x0 + r0) * s_x + c0;
-    p.step = (THREADS / (BK / 4)) * s_x;
+    const int r0 = tid / (BK / V), c0 = (tid % (BK / V)) * V;
+    p.src = b + ((x0 + r0) * s_x + c0) * E;
+    p.step = (THREADS / (BK / V)) * s_x * E;
     p.lim_a = ext_x - x0 - r0;
     p.lim_b = k - c0;
   } else {
-    const int kk0 = tid / (X / 4), xo = (tid % (X / 4)) * 4;
-    p.src = base + kk0 * s_k + x0 + xo;
-    p.step = s_k;
+    const int kk0 = tid / (X / V), xo = (tid % (X / V)) * V;
+    p.src = b + (kk0 * s_k + x0 + xo) * E;
+    p.step = s_k * E;
     p.lim_a = k - kk0;
     p.lim_b = ext_x - x0 - xo;
   }
   return p;
 }
 
-// The K-slice at k0 of a planned operand into the stage `s`; `safe` is any
-// valid address, read for no bytes where a run lies outside the operand.
-template <int X, int THREADS>
+// The K-slice at k0 of a planned operand into the f32 stage `s`; `safe`
+// is any valid address, read for no bytes where a run lies outside the
+// operand.
+template <int X, int THREADS, int E = 4>
 __device__ __forceinline__ void load_vec(const Plan& p, float* s, int k0,
-                                         bool kc, const float* safe,
+                                         bool kc, const void* safe,
                                          int tid) {
-  constexpr int N = X * BK / 4 / THREADS;   // 16-byte runs per thread
+  constexpr int V = 16 / E;
+  constexpr int N = X * BK / V / THREADS;   // 16-byte runs per thread
   if (kc) {
-    constexpr int RS = THREADS / (BK / 4);  // rows between runs
+    constexpr int RS = THREADS / (BK / V);  // rows between runs
     const int left = p.lim_b - k0;
-    const int nb = left > 0 ? 4 * min(left, 4) : 0;
-    float* d = s + (tid / (BK / 4)) * (BK + PAD) + (tid % (BK / 4)) * 4;
+    const int nb = left > 0 ? E * min(left, V) : 0;
+    float* d = s + (tid / (BK / V)) * (BK + PAD) + (tid % (BK / V)) * V;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int bytes = i * RS < p.lim_a ? nb : 0;
       cp_async16(d + i * RS * (BK + PAD),
-                 bytes ? p.src + i * p.step + k0 : safe, bytes);
+                 bytes ? p.src + i * p.step + k0 * E : safe, bytes);
     }
   } else {
-    constexpr int KS = THREADS / (X / 4);   // k-rows between runs
-    const int nb = p.lim_b > 0 ? 4 * min(p.lim_b, 4) : 0;
-    const float* src = p.src + k0 * p.step;
-    float* d = s + (tid / (X / 4)) * (X + PAD) + (tid % (X / 4)) * 4;
+    constexpr int KS = THREADS / (X / V);   // k-rows between runs
+    const int nb = p.lim_b > 0 ? E * min(p.lim_b, V) : 0;
+    const char* src = p.src + k0 * p.step;
+    float* d = s + (tid / (X / V)) * (X + PAD) + (tid % (X / V)) * V;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int bytes = k0 + i * KS < p.lim_a ? nb : 0;

@@ -12,8 +12,28 @@ running once under ``FakeTensorMode`` on rank 0 of a fake process group
 (``fake_process_group``), inside ``LoweringMode``: a ``CommDebugMode``
 that also adds up, on that rank, the bytes of every collective's result
 (per op kind), the bytes every other op reads and writes, and its FLOPs
-by ``FlopCounterMode``'s formulas.  Its ``implicit_replication`` treats
-the plain tensors the model makes (positions, masks) as replicated.
+by ``FlopCounterMode``'s formulas, to which it adds the QR's, which
+``FlopCounterMode`` has none for (``qr_flops``).  Its
+``implicit_replication`` treats the plain tensors the model makes
+(positions, masks) and the optimizer's ``init`` makes (SOAP's factors) as
+replicated.
+
+The train step runs at ``step=0``: the step that holds SOAP's eigenbasis
+refresh (its power-iteration product and QR, the QR on the replicated
+product: ``sharding.ops.qr_q``) and Sophia's curvature refresh,
+as the reference's traced step holds both branches of its ``lax.cond``;
+``step=1`` would count none of either.  The ``fed_round`` step is
+``make_fed_round_step(..., client_loop=True)``: the clients in a Python
+loop with plain autograd, since ``torch.func`` (the cohort's ``vmap``)
+takes no DTensors.  Against the reference's program, which ``vmap``s one
+client's ``lax.scan`` over the cohort, the loop runs each op once a
+client on a client's tensors (the same FLOPs and unfused bytes, and the
+same collective bytes in C times as many collectives of 1/C the size);
+each client's microbatches keep the batch's sharding over the batch axes
+(``steps._client_microbatch``: no collective moves a row, where XLA's
+propagation decides how the (C, K, micro) split lies); and the optimizer
+state a client makes in the round is replicated where its ``init`` makes
+plain tensors (SOAP's factors), where XLA may shard it.
 
 ``analyze`` fills the reference's record.  Its FLOPs and bytes are the
 whole program's, each op counted once: the step runs once more on plain
@@ -45,7 +65,7 @@ import json
 import re
 import sys
 import time
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -119,6 +139,19 @@ def _local_bytes(tree) -> int:
                for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
 
 
+def qr_flops(a_shape, *args, out_shape=None, **kwargs) -> int:
+    """Householder QR FLOPs of a (..., m, n) operand, a ``FlopCounterMode``
+    formula: 2 l s^2 - 2 s^3 / 3 a matrix (s the short side, l the long),
+    4 n^3 / 3 for an n x n one, times the batch.  Forming Q is not
+    counted, as LAPACK's count for ``geqrf`` leaves it out."""
+    *batch, m, n = a_shape
+    short, long_ = min(m, n), max(m, n)
+    count = 1
+    for b in batch:
+        count *= b
+    return count * (6 * long_ * short * short - 2 * short ** 3) // 3
+
+
 def _lowering_mode_class():
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import FlopCounterMode
@@ -133,7 +166,9 @@ def _lowering_mode_class():
             super().__init__()
             self.collective = {k: 0 for k in COLLECTIVE_OPS}
             self.op_bytes = 0
-            self.flops = FlopCounterMode(display=False)
+            self.flops = FlopCounterMode(
+                display=False,
+                custom_mapping={torch.ops.aten.linalg_qr: qr_flops})
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -188,25 +223,31 @@ def model_flops(cfg, shape: S.InputShape) -> float:
 
 @dataclasses.dataclass
 class Lowering:
-    """A step and its DTensor arguments, built under ``fake_mode``."""
+    """A step and its DTensor arguments, built under ``fake_mode``.
+    ``warmup`` is an optional (step, args) of the same ops at a smaller
+    size (the fed round at one client)."""
     step_fn: Any
     args: tuple
     fake_mode: Any
     mesh: Any
+    warmup: Optional[tuple] = None
 
     def run(self):
         """Runs the step on the fake shards; returns (outputs, the
-        ``LoweringMode`` that watched it).  It runs twice and the second
-        run is the one counted: the first fills DTensor's sharding
-        propagation cache, whose shape inference runs each new op once
-        more at its global shape, through the same modes."""
+        ``LoweringMode`` that watched it).  The counted run comes second:
+        a first run fills DTensor's sharding propagation cache, whose
+        shape inference runs each new op once more at its global shape,
+        through the same modes.  That first run is the step itself, or
+        ``warmup``: a fed round's clients repeat one client's ops, so a
+        one-client round fills the cache for all of them."""
         from torch.distributed.tensor.experimental import (
             implicit_replication,
         )
-        for _ in range(2):
+        first = self.warmup or (self.step_fn, self.args)
+        for fn, args in (first, (self.step_fn, self.args)):
             mode = _lowering_mode_class()()
             with self.fake_mode, mode, implicit_replication():
-                out = self.step_fn(*self.args)
+                out = fn(*args)
         return out, mode
 
     def run_whole(self):
@@ -230,23 +271,18 @@ def build_lowering(arch: str, shape_name: str, mesh, *, opt_name: str = "muon",
                    gg_dtype=torch.float32, state_dtype=None):
     """(cfg, shape, ``Lowering``) of one combination: the reference's opt
     defaults (Muon; SOAP with ``state_dtype`` bf16).  The train step runs
-    at ``step=1``, a step between SOAP's eigenbasis refreshes.  The
-    ``fed_round`` step raises: its clients run under ``torch.func.vmap``,
-    which does not take DTensors."""
+    at ``step=0``, the step that holds the refreshes; ``fed_round`` is the
+    client loop over ``fed_clients`` x ``fed_local_steps`` microbatches,
+    from ``theta = opt.get_precond(opt.init(params))``, at seed 0."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg = cfg or configs.get_config(arch)
     shape = shape_override or S.INPUT_SHAPES[shape_name]
     kind = step_kind or shape.kind
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+    warmup = None
 
-    if kind == "fed_round":
-        raise NotImplementedError(
-            "the fed_round dry-run needs the cohort's torch.func.vmap "
-            "(core.client.client_round) over DTensors, which torch.func "
-            "does not support; dry-run the train step (one client's step) "
-            "instead")
     with fake_mode:
-        if kind == "train":
+        if kind in ("train", "fed_round"):
             rules = TRAIN_RULES
             lr = optim.DEFAULT_LR.get(opt_name, 1e-2)
             opt_kw = {}
@@ -263,11 +299,26 @@ def build_lowering(arch: str, shape_name: str, mesh, *, opt_name: str = "muon",
                                       device="meta"), params), mesh)
             batch_axes = tuple(a for a in ("pod", "data")
                                if a in mesh.mesh_dim_names)
-            opt_state = S.opt_state_specs(opt, params, mesh)
-            step_fn = ST.make_train_step(cfg, opt, lr=lr, beta=beta,
-                                         seq_shard=seq_shard,
-                                         batch_axes=batch_axes)
-            args = (params, opt_state, gg, batch, 1)
+            if kind == "train":
+                opt_state = S.opt_state_specs(opt, params, mesh)
+                step_fn = ST.make_train_step(cfg, opt, lr=lr, beta=beta,
+                                             seq_shard=seq_shard,
+                                             batch_axes=batch_axes)
+                args = (params, opt_state, gg, batch, 0)
+            else:
+                theta = S.precond_specs(opt, params, mesh)
+
+                def fed_step(clients):
+                    return ST.make_fed_round_step(
+                        cfg, opt, lr=lr, beta=beta, clients=clients,
+                        local_steps=fed_local_steps, seq_shard=seq_shard,
+                        batch_axes=batch_axes, client_loop=True)
+                step_fn = fed_step(fed_clients)
+                args = (params, theta, gg, batch, 0)
+                one = dataclasses.replace(
+                    shape, global_batch=shape.global_batch // fed_clients)
+                warmup = (fed_step(1), (params, theta, gg, S.token_inputs(
+                    cfg, one, mesh, rules=rules, with_labels=True), 0))
         elif kind == "prefill":
             rules = SERVE_FSDP_RULES if serve_fsdp else SERVE_RULES
             params = S.param_specs(cfg, mesh, rules)
@@ -291,7 +342,7 @@ def build_lowering(arch: str, shape_name: str, mesh, *, opt_name: str = "muon",
             args = (params, tokens, caches)
         else:
             raise ValueError(kind)
-    return cfg, shape, Lowering(step_fn, args, fake_mode, mesh)
+    return cfg, shape, Lowering(step_fn, args, fake_mode, mesh, warmup)
 
 
 def analyze(arch, shape_name, mesh_name, lowered: Lowering, cfg, shape):

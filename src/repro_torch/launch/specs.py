@@ -106,6 +106,13 @@ def opt_state_specs(opt, params_sds, mesh):
     return like_tree_specs(opt.init(_meta(params_sds)), mesh)
 
 
+def precond_specs(opt, params_sds, mesh):
+    """The optimizer's Theta (``get_precond`` of its ``init``) on ``meta``
+    params, every leaf greedy-sharded: a round's ``theta`` argument."""
+    return like_tree_specs(opt.get_precond(opt.init(_meta(params_sds))),
+                           mesh)
+
+
 def cache_specs(cfg: ModelConfig, shape: InputShape, mesh, rules,
                 ring: bool):
     caches = M.init_caches(cfg, shape.global_batch, shape.seq_len,

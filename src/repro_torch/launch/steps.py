@@ -7,7 +7,9 @@ train_step  — one FedPAC local step: grad -> UpdateState -> P_Theta(g) ->
 fed_round   — a full Alg. 2 round: C client groups x K local steps (the
               port's cohort ``client_round`` under a cohort executor,
               its gradients from ``torch.func``) + parameter/Theta
-              aggregation.
+              aggregation.  ``client_loop=True`` (the dry-run's route)
+              runs the clients one after another with plain autograd
+              instead, so that the round takes DTensors.
 Both take ``remat`` (default True, the reference's): each layer is
 recomputed in the backward (``models.transformer``).
 prefill/decode — the serving paths.
@@ -26,7 +28,8 @@ import torch
 
 from repro_torch.core.algorithms import resolve
 from repro_torch.core.client import (
-    LocalRunConfig, client_round, rademacher_like,
+    LocalRunConfig, client_round, draw_probes, probe_generators,
+    rademacher_like,
 )
 from repro_torch.core.engine import (
     AggregationConfig, ExecutorConfig, aggregate, make_cohort_executor,
@@ -34,6 +37,7 @@ from repro_torch.core.engine import (
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.api import LocalOptimizer
+from repro_torch.sharding.ops import is_dtensor
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 HESSIAN_FREQ = 10      # the reference train step's Sophia gate
@@ -74,6 +78,33 @@ def _hutchinson(loss, leaves, grads, probes):
             for u, h in zip(probes, hvp)]
 
 
+def _local_step(loss_fn, opt, params, opt_state, g_global, batch, step, *,
+                lr, beta, probes=None):
+    """One FedPAC local step with plain autograd: grad -> UpdateState ->
+    P_Theta(g) -> x - lr [(1-beta) d + beta g_G] (Eq. 9).  ``probes``
+    (params-like), given on the steps that refresh an optimizer's
+    curvature, feed Sophia's Hutchinson estimate by double backward.
+    Returns (params, opt_state, loss)."""
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, create_graph=probes is not None)
+    extras = None
+    if probes is not None:
+        est = _hutchinson(loss, leaves, grads, tree_leaves(probes))
+        extras = {"h_est": tree_unflatten(params, est)}
+        grads = [g.detach() for g in grads]
+    direction, opt_state = opt.update(
+        tree_unflatten(params, list(grads)), opt_state, params, step,
+        extras=extras)
+
+    def mix(d, gg, p):
+        upd = (1.0 - beta) * d + beta * gg
+        return (p.to(torch.float32) - lr * upd).to(p.dtype)
+
+    return tree_map(mix, direction, g_global, params), opt_state, \
+        loss.detach()
+
+
 def make_train_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
                     beta: float = 0.5, remat: bool = True,
                     seq_shard: bool = False, batch_axes=("data",)):
@@ -86,29 +117,84 @@ def make_train_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
 
     def train_step(params, opt_state, g_global, batch, step):
         step = int(step)
-        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, leaves), batch)
-        gate = opt.needs_hessian and step % HESSIAN_FREQ == 0
-        grads = torch.autograd.grad(loss, leaves, create_graph=gate)
-        extras = None
-        if gate:
-            gen = torch.Generator(device=leaves[0].device).manual_seed(step)
-            probes = tree_leaves(rademacher_like(params, gen))
-            est = _hutchinson(loss, leaves, grads, probes)
-            extras = {"h_est": tree_unflatten(params, est)}
-            grads = [g.detach() for g in grads]
-        direction, opt_state = opt.update(
-            tree_unflatten(params, list(grads)), opt_state, params,
-            step, extras=extras)
-
-        def mix(d, gg, p):
-            upd = (1.0 - beta) * d + beta * gg
-            return (p.to(torch.float32) - lr * upd).to(p.dtype)
-
-        params = tree_map(mix, direction, g_global, params)
-        return params, opt_state, loss.detach()
+        probes = None
+        if opt.needs_hessian and step % HESSIAN_FREQ == 0:
+            gen = torch.Generator(
+                device=tree_leaves(params)[0].device).manual_seed(step)
+            probes = rademacher_like(params, gen)
+        return _local_step(loss_fn, opt, params, opt_state, g_global, batch,
+                           step, lr=lr, beta=beta, probes=probes)
 
     return train_step
+
+
+def _client_microbatch(x, c: int, k: int, clients: int, local_steps: int):
+    """Client ``c``'s step-``k`` microbatch of a (B, ...) batch entry, as
+    ``(C, K, B/(C K), ...)`` splits it.  A DTensor keeps its placements:
+    its local rows split the same way, so each microbatch is sharded over
+    the batch's mesh axes as the train step's batch is, and no collective
+    moves a row (the global rows a client gets are then a permutation of
+    the plain split's, which a fake run does not see)."""
+    micro = x.shape[0] // (clients * local_steps)
+    if not is_dtensor(x):
+        return x.reshape(clients, local_steps, micro, *x.shape[1:])[c, k]
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    rows = local.shape[0] // (clients * local_steps)
+    if rows * clients * local_steps != local.shape[0]:
+        raise ValueError(
+            f"a batch of {x.shape[0]} rows, {local.shape[0]} a rank, does "
+            f"not split into {clients} clients x {local_steps} steps on "
+            f"every rank")
+    part = local.reshape(clients, local_steps, rows, *local.shape[1:])[c, k]
+    shape = (micro, *x.shape[1:])
+    return DTensor.from_local(
+        part, x.device_mesh, x.placements, run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _looped_client_round(loss_fn, opt, run, x0, theta, g_global, batch,
+                         clients: int, *, seed=0, probe_fn=None):
+    """``client_round``'s (stacked delta, stacked Theta, mean loss) with
+    the clients in a Python loop: each client's K local steps take their
+    gradients from plain ``torch.autograd.grad`` (the train step's route;
+    remat by ``torch.utils.checkpoint``), then the outputs are stacked on
+    the client axis.  No ``torch.func``, so it takes DTensors.  Sophia's
+    probes are ``client_round``'s: the stacked cohort's draw (or
+    ``probe_fn(k)``), client ``c`` taking row ``c``."""
+    k_steps = run.local_steps
+    probes = {}
+    if opt.needs_hessian:
+        stacked = tree_map(lambda p: p.expand(clients, *p.shape), x0)
+        gens = None if probe_fn is not None else probe_generators(
+            seed, clients, tree_leaves(x0)[0].device)
+        for k in range(0, k_steps, run.hessian_freq):
+            probes[k] = (probe_fn(k) if probe_fn is not None
+                         else draw_probes(stacked, gens))
+    deltas, thetas, losses = [], [], []
+    for c in range(clients):
+        x = x0
+        opt_state = opt.init(x0)
+        if run.align and theta is not None:
+            opt_state = opt.set_precond(opt_state, theta)
+        for k in range(k_steps):
+            micro = {name: _client_microbatch(b, c, k, clients, k_steps)
+                     for name, b in batch.items() if b is not None}
+            u = probes.get(k)
+            x, opt_state, loss = _local_step(
+                loss_fn, opt, x, opt_state, g_global, micro, k, lr=run.lr,
+                beta=run.beta,
+                probes=None if u is None else tree_map(lambda t: t[c], u))
+            losses.append(loss)
+        deltas.append(tree_map(
+            lambda a, b: a.to(torch.float32) - b.to(torch.float32), x, x0))
+        thetas.append(opt.get_precond(opt_state))
+
+    def stack(*xs):
+        return torch.stack(xs)
+    return (tree_map(stack, *deltas), tree_map(stack, *thetas),
+            torch.stack(losses).mean())
 
 
 def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
@@ -116,7 +202,8 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
                         local_steps: int = 2, remat: bool = True,
                         seq_shard: bool = False, batch_axes=("data",),
                         algorithm=None, transport=None,
-                        executor: Optional[ExecutorConfig] = None):
+                        executor: Optional[ExecutorConfig] = None,
+                        client_loop: bool = False):
     """Full FedPAC round: the global batch splits into ``clients`` cohorts
     of ``local_steps`` microbatches each; Theta/params aggregate through
     ``core.engine.aggregate``.
@@ -129,7 +216,16 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
     aggregation; the step keeps no state, so error feedback is rejected.
     ``executor`` maps the cohort onto the device (default ``vmap``).
     ``remat`` recomputes every layer of every client in the backward,
-    under the cohort's ``torch.func`` transforms."""
+    under the cohort's ``torch.func`` transforms.
+
+    ``client_loop=True`` replaces the cohort executor by a Python loop
+    over the clients with plain autograd (``_looped_client_round``): the
+    route that takes DTensors, which ``torch.func`` does not, for the
+    dry-run.  On plain tensors it computes what the ``vmap`` route does,
+    one client at a time."""
+    if client_loop and executor is not None:
+        raise ValueError("client_loop runs the cohort itself: pass no "
+                         "executor")
     spec = resolve(algorithm) if algorithm is not None else None
     align = spec.align if spec is not None else True
     if spec is not None:
@@ -147,19 +243,25 @@ def make_fed_round_step(cfg: ModelConfig, opt: LocalOptimizer, *, lr: float,
     run = LocalRunConfig(lr=lr, local_steps=local_steps, beta=beta,
                          align=align)
     agg_cfg = AggregationConfig(lr=lr, local_steps=local_steps, align=align)
-    cohort_exec = make_cohort_executor(executor)
+    cohort_exec = None if client_loop else make_cohort_executor(executor)
 
     def fed_round(params, theta, g_global, batch, seed=0, probe_fn=None):
         """``seed`` seeds Sophia's probes (the reference's round key);
         ``probe_fn(k)`` replaces them (``client_round``'s)."""
-        def split(x):  # (B, ...) -> (C, K, B/(C*K), ...)
-            micro = x.shape[0] // (clients * local_steps)
-            return x.reshape(clients, local_steps, micro, *x.shape[1:])
+        if client_loop:
+            deltas, thetas, loss = _looped_client_round(
+                loss_fn, opt, run, params, theta, g_global, batch, clients,
+                seed=seed, probe_fn=probe_fn)
+        else:
+            def split(x):  # (B, ...) -> (C, K, B/(C*K), ...)
+                micro = x.shape[0] // (clients * local_steps)
+                return x.reshape(clients, local_steps, micro, *x.shape[1:])
 
-        batches = {k: split(v) for k, v in batch.items() if v is not None}
-        deltas, thetas, loss = client_round(
-            loss_fn, opt, run, params, theta, g_global, batches,
-            cohort_exec, seed=seed, probe_fn=probe_fn)
+            batches = {k: split(v) for k, v in batch.items()
+                       if v is not None}
+            deltas, thetas, loss = client_round(
+                loss_fn, opt, run, params, theta, g_global, batches,
+                cohort_exec, seed=seed, probe_fn=probe_fn)
         if transport is not None:
             deltas = transport.delta.roundtrip(deltas)
             if align:

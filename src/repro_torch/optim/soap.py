@@ -10,10 +10,14 @@ Theta = {L, R}.
 
 ``state_dtype`` (the reference's) stores L, R, Q_L and Q_R in that dtype
 (bf16 halves the O(m^2 + n^2) state of a wide model); M, V and the Adam
-fallback stay f32.  Every product and refresh reads f32 casts of the
-stored factors and rounds its result back to ``state_dtype``, as the
-reference does: ``matmul_fused`` takes f32 operands, so the casts come
-before each grouped launch.
+fallback stay f32.  The arithmetic is the reference's: every product
+reads the stored factors widened to f32 and accumulates in f32, and only
+the stored factors are rounded to ``state_dtype``.  ``matmul_fused``
+widens a bf16 or f16 operand itself, so the grouped launches read the
+stored factors as they are (no f32 copy of L, R, Q_L or Q_R): the EMAs
+write ``state_dtype`` factors from an f32 G, the rotations f32 results
+from a ``state_dtype`` Q.  The refresh casts its inputs to f32, as the
+reference does, for ``torch.matmul`` and the QR.
 
 Matrices with a dimension above ``max_precond_dim`` go one-sided (identity
 on that side); 3-D expert tensors are batched matrices; non-matrix leaves
@@ -28,9 +32,11 @@ beta = b2, aux = L/R), then Q_L^T G, G Q_R, ``adam_moments`` per leaf, Q_L
 N and N Q_R^T — the per-leaf math and order of ``soap_rotated_update``.  A
 ViT-Tiny step is 5 launches of ``matmul_fused`` instead of 288.  The Adam
 fallback goes through ``adam_moments``.  The refresh product P @ Q stays
-a library call, as the reference leaves it to XLA; so does the QR.  The
-``"ns"`` refresh orthogonalises every side of every matrix leaf in one
-``newton_schulz_group`` call: one ``newton_schulz`` launch a refresh.
+a library call, as the reference leaves it to XLA; so does the QR
+(``sharding.ops.qr_q``: on a DTensor, the dry-run's, it runs on
+the replicated product).  The ``"ns"`` refresh orthogonalises every side
+of every matrix leaf in one ``newton_schulz_group`` call: one
+``newton_schulz`` launch a refresh.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.kernels.ns_ortho.kernel import matmul_fused_group
 from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
 from repro_torch.optim.api import LocalOptimizer, as_matrix, matrix_mask
+from repro_torch.sharding.ops import qr_q
 from repro_torch.utils.tree import (
     tree_flatten_with_path, tree_get, tree_map, tree_map_with_path,
 )
@@ -57,8 +64,7 @@ def _eig_refresh(pairs, method: str):
     if method == "ns":
         return newton_schulz_group([torch.matmul(p_mat, q)
                                     for p_mat, q in pairs])
-    return (torch.linalg.qr(torch.matmul(p_mat, q))[0]
-            for p_mat, q in pairs)
+    return (qr_q(torch.matmul(p_mat, q)) for p_mat, q in pairs)
 
 
 def _is_state_leaf(x):
@@ -106,11 +112,13 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
 
     def _phase(xs, states, key, operands):
         """One grouped ``matmul_fused`` over the leaves whose state holds
-        ``key``: ``operands(state[key], x) -> (lhs, rhs)``; the other
-        leaves pass ``xs`` through (identity on a missing side)."""
+        ``key``: ``operands(state[key], x) -> (lhs, rhs)``, the product in
+        f32; the other leaves pass ``xs`` through (identity on a missing
+        side)."""
         idx = [i for i, st in enumerate(states) if key in st]
         outs = matmul_fused_group([
-            (*operands(states[i][key], xs[i]), None, 1.0, 0.0) for i in idx])
+            (*operands(states[i][key], xs[i]), None, 1.0, 0.0, f32)
+            for i in idx])
         xs = list(xs)
         for i, out in zip(idx, outs):
             xs[i] = out
@@ -120,8 +128,8 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         """The matrix leaves' SOAP step, phase by phase over all leaves
         (one launch per product phase).  Per leaf the math and its order
         are ``soap_rotated_update``'s after the EMAs and the refresh.
-        Stored factors are read as f32 casts and results rounded back to
-        ``state_dtype`` (no copy at f32)."""
+        Stored factors are read in ``state_dtype`` and widened by the
+        kernel; the EMAs' results are written in it."""
         new = [dict(st) for st in states]
         # 1. L/R EMAs: L' = (1-b2) G G^T + b2 L, R' = (1-b2) G^T G + b2 R
         problems, slots = [], []
@@ -129,17 +137,13 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
             gt = g.transpose(-1, -2)
             for key, lhs, rhs in (("L", g, gt), ("R", gt, g)):
                 if key in st:
-                    problems.append((lhs, rhs, st[key].to(f32), 1 - b2, b2))
+                    problems.append((lhs, rhs, st[key], 1 - b2, b2, sd))
                     slots.append((i, key))
-        # the f32 casts of the factors, and the results (views of one
-        # arena), are dropped once used: at LLaMA-350M x 4 clients each
-        # set is 13 GB at state_dtype bf16; so are the refresh's operands
-        # and the rotations' f32 eigenbases and outputs below
-        outs = matmul_fused_group(problems)
-        del problems
-        for j, (i, key) in enumerate(slots):
-            new[i][key], outs[j] = outs[j].to(sd), None
-        # 2. the scheduled eigenbasis refresh, every side of every leaf
+        for (i, key), out in zip(slots, matmul_fused_group(problems)):
+            new[i][key] = out
+        # 2. the scheduled eigenbasis refresh, every side of every leaf;
+        # the refresh's operands (f32 casts, as the reference's) are made
+        # one pair at a time and dropped after its QR
         if step % precond_freq == 0:
             sides = [(st, q, f) for st in new
                      for q, f in (("QL", "L"), ("QR", "R")) if q in st]
@@ -148,15 +152,9 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
             for st, q, _ in sides:
                 st[q] = next(qs).to(sd)
 
-        def f32_side(key):
-            """One side's eigenbases as f32 operands, cast for the phase
-            that reads them and dropped after it."""
-            return [{key: st[key].to(f32)} if key in st else {}
-                    for st in new]
         # 3-4. G' = Q_L^T G Q_R
-        rot = _phase(gs, f32_side("QL"), "QL",
-                     lambda q, g: (q.transpose(-1, -2), g))
-        rot = _phase(rot, f32_side("QR"), "QR", lambda q, g: (g, q))
+        rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))
+        rot = _phase(rot, new, "QR", lambda q, g: (g, q))
         # 5. bias-corrected Adam in the rotated basis (t = step + 1):
         #    moments restart from zero every federated round
         ns = [None] * len(new)
@@ -165,10 +163,9 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                 rot[i], st["M"], st["V"], b1=b1, b2=b2, eps=eps, step=step)
         del rot      # each phase's outputs are views of one arena
         # 6-7. D = Q_L N Q_R^T
-        ds = _phase(ns, f32_side("QL"), "QL", lambda q, n: (q, n))
+        ds = _phase(ns, new, "QL", lambda q, n: (q, n))
         del ns
-        ds = _phase(ds, f32_side("QR"), "QR",
-                    lambda q, n: (n, q.transpose(-1, -2)))
+        ds = _phase(ds, new, "QR", lambda q, n: (n, q.transpose(-1, -2)))
         return ds, new
 
     def update(grads, state, params, step: int, lead: int = 0,

@@ -86,11 +86,12 @@ def path_str(path) -> str:
 
 def client_weighted_sum(tree, weights):
     """sum_i w_i x_i over the leading (client) axis of every leaf, in f32:
-    one contraction of the weight vector against the client axis."""
+    one contraction of the weight vector against the client axis (on a
+    DTensor leaf, each rank's shard: ``sharding.ops.client_contract``)."""
+    # imported here: the sharding package imports this module
+    from repro_torch.sharding.ops import client_contract
     w = weights.to(torch.float32)
-    return tree_map(
-        lambda x: torch.tensordot(w, x.to(torch.float32), dims=([0], [0])),
-        tree)
+    return tree_map(lambda x: client_contract(w, x.to(torch.float32)), tree)
 
 
 def tree_norm_sq(tree):

@@ -26,6 +26,9 @@ Tolerances:
     the per-leaf plain version; 4 B u sum_i |w_i s_i q_i| per element
     against the reference (u = 2^-24: B f32 products summed in another
     order).
+  * matmul_fused's problem table: its dtype codes, the 16-byte rule
+    counted in bytes and the per-dtype output arena, exact; its plain
+    group over mixed dtypes bitwise the per-problem plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -52,6 +55,7 @@ from repro_torch.kernels.fused_agg import kernel as fak
 from repro_torch.kernels.fused_agg.kernel import (
     dequant_accumulate, dequant_accumulate_group, dequant_accumulate_plain,
 )
+from repro_torch.kernels.ns_ortho import kernel as mfk
 from repro_torch.kernels.qblock import kernel as qbk
 from repro_torch.kernels.qblock.kernel import (
     quantize, quantize_group, quantize_plain,
@@ -89,6 +93,143 @@ def test_table_capacities_fit_the_launch_parameters():
     for mod in (suk, fak):
         assert mod.TABLE_BYTES <= grouped.PARAM_LIMIT
         assert mod.TABLE_BYTES + mod.LEAF.itemsize > grouped.PARAM_LIMIT
+
+
+# ------------------------------------------- matmul_fused's dtype fields
+
+def _codes(flags):
+    """(lhs, rhs, aux, out) dtype codes of a problem's flags."""
+    return tuple((flags >> shift) & 3 for shift in (
+        mfk.DT_LHS, mfk.DT_RHS, mfk.DT_AUX, mfk.DT_OUT))
+
+
+@pytest.mark.parametrize("dtypes,out,want", [
+    # lhs, rhs, aux -> out: the record's codes (0 f32, 1 bf16, 2 f16)
+    (("float32", "float32", None), None, (0, 0, 0, 0)),
+    (("bfloat16", "float32", None), "float32", (1, 0, 0, 0)),
+    (("float32", "float32", "bfloat16"), "bfloat16", (0, 0, 1, 1)),
+    (("float16", "bfloat16", "float32"), None, (2, 1, 0, 2)),
+    (("float32", "float16", "float16"), "float16", (0, 2, 2, 2)),
+])
+def test_matmul_fused_problem_row_dtype_codes(dtypes, out, want):
+    """The output is lhs's dtype unless the problem names one; the
+    layout flags below the codes are those of the f32 operands."""
+    dl, dr, dx = (None if d is None else getattr(torch, d) for d in dtypes)
+    lhs, rhs = torch.empty((2, 16, 24), dtype=dl), torch.empty(
+        (2, 24, 32), dtype=dr)
+    aux = None if dx is None else torch.empty((2, 16, 32), dtype=dx)
+    row = mfk.problem_row(lhs, rhs, aux, 1.0, 0.0, 0,
+                          None if out is None else getattr(torch, out))
+    flags = row[20]
+    assert _codes(flags) == want
+    assert flags & 0xFF == mfk.problem_row(
+        lhs.float(), rhs.float(), None if aux is None else aux.float(),
+        1.0, 0.0, 0)[20] & 0xFF
+    (table, _), = mfk.group_tables([row])
+    rec = table[mfk.HEADER_BYTES:].view(mfk.PROBLEM)[0]
+    assert _codes(int(rec["flags"])) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int8,
+                                   torch.float8_e4m3fn])
+def test_matmul_fused_problem_row_refuses_other_dtypes(dtype):
+    x = torch.empty((4, 4))
+    y = torch.empty((4, 4), dtype=dtype)
+    for args in ((y, x, None), (x, y, None), (x, x, y)):
+        with pytest.raises(TypeError, match="float32, bfloat16 and float16"):
+            mfk.problem_row(*args, 1.0, 0.0, 0)
+    with pytest.raises(TypeError, match="float32, bfloat16 and float16"):
+        mfk.problem_row(x, x, None, 1.0, 0.0, 0, dtype)
+
+
+@pytest.mark.parametrize("case,args,want", [
+    # (ptr, (sb, sx, sk), ext_x, k, batch, itemsize) -> (kc, vec): a
+    # 16-byte run holds 4 f32 or 8 bf16/f16 elements
+    ("f32 rows of 4", (4096, (16, 4, 1), 4, 4, 2, 4), (True, True)),
+    ("2-byte rows of 4 (8 B)", (4096, (16, 4, 1), 4, 4, 2, 2),
+     (True, False)),
+    ("2-byte rows of 8", (4096, (64, 8, 1), 8, 8, 2, 2), (True, True)),
+    ("2-byte k-major, k stride 8", (4096, (64, 1, 8), 8, 8, 2, 2),
+     (False, True)),
+    ("2-byte k-major, k stride 12", (4096, (96, 1, 12), 12, 8, 2, 2),
+     (False, False)),
+    ("2-byte base 8-aligned", (4104, (64, 8, 1), 8, 8, 2, 2),
+     (True, False)),
+    ("2-byte batch stride 4", (4096, (4, 8, 1), 8, 8, 2, 2),
+     (True, False)),
+    ("2-byte batch stride 4, batch 1", (4096, (4, 8, 1), 8, 8, 1, 2),
+     (True, True)),
+    ("2-byte identity expand, stride 0", (4096, (0, 16, 1), 16, 16, 5, 2),
+     (True, True)),
+    ("2-byte single row", (4096, (27, 27, 1), 1, 27, 1, 2), (True, True)),
+    ("the CNN's 27-wide rows, 2-byte", (4096, (729, 27, 1), 27, 27, 2, 2),
+     (True, False)),
+])
+def test_matmul_fused_vec_rule_counts_bytes(case, args, want):
+    assert mfk.operand_flags(*args) == want, case
+
+
+def test_matmul_fused_output_rule_counts_bytes():
+    """A 4-element run of a 2-byte aux is 8 bytes: its base must be 8-byte
+    aligned (16 for f32), its rows and batch 4-element strided."""
+    lhs, rhs = torch.empty((2, 8, 8)), torch.empty((2, 8, 8))
+    for dtype, offset, want in ((torch.float32, 0, True),
+                                (torch.float32, 2, False),
+                                (torch.bfloat16, 4, True),
+                                (torch.bfloat16, 2, False),
+                                (torch.float16, 0, True)):
+        aux = torch.empty(2 * 64 + offset, dtype=dtype)[offset:].view(2, 8,
+                                                                      8)
+        flags = mfk.problem_row(lhs, rhs, aux, 1.0, 1.0, 0)[20]
+        assert bool(flags & mfk.O_VEC) == (aux.data_ptr() % (
+            4 * aux.element_size()) == 0) == want, (dtype, offset)
+
+
+def test_matmul_fused_tables_order_problems_by_mainloop():
+    """A problem whose 2-byte operand takes 16-byte copies runs the
+    widening mainloop: the table keeps such problems apart from the f32
+    ones of the same layout (then longest k first), as the kernel's
+    dispatch reads them."""
+    g = torch.empty((2, 16, 24))
+    gh = torch.empty((2, 16, 24), dtype=torch.bfloat16)
+    q = torch.empty((2, 16, 16))
+    qh = torch.empty((2, 16, 16), dtype=torch.bfloat16)
+    narrow = torch.empty((2, 16, 27), dtype=torch.bfloat16)[:, :, :24]
+    rows = [mfk.problem_row(q, g, None, 1.0, 0.0, 0),        # f32
+            mfk.problem_row(qh, g, None, 1.0, 0.0, 0),       # widened lhs
+            mfk.problem_row(q, gh, None, 1.0, 0.0, 0),       # widened rhs
+            mfk.problem_row(q, narrow, None, 1.0, 0.0, 0)]   # element loads
+    flags = np.array([r[20] for r in rows], dtype=np.int32)
+    loops = mfk.mainloop(flags)
+    assert [bool(x & mfk.RAW_LOOP) for x in loops] == [False, True, True,
+                                                        False]
+    (_, idx), = mfk.group_tables(rows)
+    assert [bool(loops[i] & mfk.RAW_LOOP) for i in idx] == sorted(
+        (bool(x & mfk.RAW_LOOP) for x in loops), reverse=True)
+
+
+def test_matmul_fused_plain_group_writes_each_problem_dtype():
+    """The CPU group over mixed dtypes (SOAP's forms at a bf16
+    state_dtype): bitwise the per-problem plain version, each output in
+    its problem's dtype (lhs's by default)."""
+    r = np.random.default_rng(4)
+    g = torch.from_numpy(r.standard_normal((2, 12, 20)).astype(np.float32))
+    lf = torch.from_numpy(r.standard_normal((2, 12, 12)).astype(
+        np.float32)).bfloat16()
+    ql = torch.from_numpy(r.standard_normal((2, 12, 12)).astype(
+        np.float32)).half()
+    problems = [(g, g.transpose(1, 2), lf, 0.05, 0.95, torch.bfloat16),
+                (ql.transpose(1, 2), g, None, 1.0, 0.0, torch.float32),
+                (ql, g, None, 1.0, 0.0)]
+    got = mfk.matmul_fused_group(problems)
+    assert [x.dtype for x in got] == [torch.bfloat16, torch.float32,
+                                      torch.float16]
+    for p, x in zip(problems, got):
+        want = mfk.matmul_fused_plain(*p[:3], alpha=p[3], beta=p[4],
+                                      out_dtype=p[5] if len(p) > 5 else None)
+        assert torch.equal(x, want)
+    assert torch.equal(got[0], (0.05 * (g @ g.transpose(1, 2))
+                                + 0.95 * lf.float()).bfloat16())
 
 
 def test_sophia_tables_records_chunk_prefixes_and_header():

@@ -12,6 +12,9 @@ Tolerances:
     orders, each within (k+2) u of the exact value.
   * bf16 products: 6e-2 * sqrt(k), the reference test's bound (both sides
     round the same f32 sum to bf16; one bf16 ulp apart at most).
+  * mixed f32/bf16/f16 operands: the f32 bound above on the operands'
+    f32 values, plus one ulp of a 2-byte output (both sides round
+    products that differ in the last f32 bits).
   * adam_moments: 1e-6 absolute on m', v' (the same f32 expression) and
     1e-5 relative on n (a division and a square root, each rounded).
 """
@@ -89,6 +92,34 @@ def test_matmul_fused_plain_matches_pallas_bf16(m, k, n):
     assert got.dtype == torch.bfloat16
     err = np.abs(got.float().numpy() - np.asarray(want.astype(jnp.float32)))
     assert err.max() < 6e-2 * max(1, k ** 0.5)
+
+
+@pytest.mark.parametrize("dtypes", ["bfloat16,float32,bfloat16",
+                                    "float32,bfloat16,float16",
+                                    "float16,float16,float32"])
+def test_matmul_fused_plain_matches_pallas_mixed_dtypes(dtypes):
+    """lhs, rhs and aux each in its own dtype, as the reference's kernel
+    takes them (it casts them to f32 inside its body): the output in
+    lhs's dtype on both sides, the values within the f32 bound plus one
+    ulp of that dtype.  A ragged (130, 257, 50) product."""
+    m, k, n = 130, 257, 50
+    names = dtypes.split(",")
+    r = _rng("mmmix", dtypes)
+    xs = [r.standard_normal(s).astype(np.float32)
+          for s in ((m, k), (k, n), (m, n))]
+    js = [jnp.asarray(x, getattr(jnp, d)) for x, d in zip(xs, names)]
+    want = jax_matmul_fused(*js, alpha=0.5, beta=-2.0, interpret=True)
+    ts = [torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, d)) for j, d in zip(js, names)]
+    got = matmul_fused(*ts, alpha=0.5, beta=-2.0)
+    assert got.dtype == getattr(torch, names[0])
+    assert want.dtype == getattr(jnp, names[0])
+    f32 = [np.asarray(j.astype(jnp.float32)) for j in js]
+    want32 = np.asarray(want.astype(jnp.float32))
+    ulp = float(torch.finfo(got.dtype).eps) if names[0] != "float32" else 0
+    tol = _dot_bound(*f32, 0.5, -2.0) + ulp * np.abs(want32) + 1e-7 * bool(
+        ulp)
+    assert np.all(np.abs(got.float().numpy() - want32) <= tol)
 
 
 @pytest.mark.parametrize("transpose", ["none", "lhs", "rhs", "both"])

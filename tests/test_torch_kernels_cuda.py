@@ -8,7 +8,12 @@ host that has none:
 Tolerances:
   * matmul_fused (one product or a group): the classical dot-product
     bound |err| <= 2 (k+2) u (|alpha| sum_k |a||b| + |beta| |aux|)
-    (u = 2^-24) elementwise — two f32 sums in different orders.
+    (u = 2^-24) elementwise — two f32 sums in different orders.  On bf16
+    and f16 operands (each its own dtype) the kernel is held bitwise to
+    itself on the operands' f32 casts (it widens them exactly and sums in
+    the same order), its 2-byte outputs bitwise to that f32 result rounded
+    by ``.to(dtype)``, and its f32 result within the bound above of the
+    plain version on the casts.
   * adam_moments: 1e-6 max(1, |x|) on m', v' (the same expression, FMA
     contraction aside) and 1e-5 max(1, |n|) on n (a division and a square
     root, each rounded or approximated differently).
@@ -100,33 +105,67 @@ def _bound(lhs, rhs, aux, alpha, beta):
     return 2 * (lhs.shape[-1] + 2) * U * mag + 1e-30
 
 
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _bits(x):
+    """``x``'s bits as integers of its width (NaN compares by payload)."""
+    return x.view({4: torch.int32, 2: torch.int16}[x.element_size()])
+
+
+def _f32_casts(problem):
+    """(lhs, rhs, aux, ...) with f32 copies of its operands."""
+    lhs, rhs, aux, *rest = problem
+    return (lhs.float(), rhs.float(), None if aux is None else aux.float(),
+            *rest[:2])
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (130, 257, 50), (256, 64, 384),
                                    (192, 576, 192), (768, 192, 768),
                                    (27, 8, 27), (192, 5, 576)])
 @pytest.mark.parametrize("layout", ["plain", "transposed"])
-def test_matmul_fused_kernel_matches_plain(cuda, m, k, n, layout):
+@pytest.mark.parametrize("dtypes", ["f32", "bf16,f32,bf16", "f32,bf16,f32",
+                                    "f16", "f16,f32,bf16"])
+def test_matmul_fused_kernel_matches_plain(cuda, m, k, n, layout, dtypes):
+    """lhs, rhs, aux in ``dtypes`` (one for all, or one each): the output
+    in lhs's dtype, bitwise the kernel on f32 casts rounded to it; the f32
+    result within the bound of the plain version."""
+    dl, dr, dx = (DTYPES[d] for d in (dtypes.split(",") * 3)[:3])
     gen = torch.Generator().manual_seed(m * 1000 + k + n)
-    lhs = _randn(gen, 3, m, k, dev=cuda)
-    rhs = _randn(gen, 3, k, n, dev=cuda)
-    aux = _randn(gen, 3, m, n, dev=cuda)
+    lhs = _randn(gen, 3, m, k, dev=cuda).to(dl)
+    rhs = _randn(gen, 3, k, n, dev=cuda).to(dr)
+    aux = _randn(gen, 3, m, n, dev=cuda).to(dx)
     if layout == "transposed":     # operands as transposed views
         lhs = lhs.transpose(1, 2).contiguous().transpose(1, 2)
         rhs = rhs.transpose(1, 2).contiguous().transpose(1, 2)
     before = matmul_fused.launches
     got = matmul_fused(lhs, rhs, aux, alpha=0.05, beta=0.95)
+    wide, = matmul_fused_group([(lhs, rhs, aux, 0.05, 0.95, torch.float32)])
+    on_casts = matmul_fused(*_f32_casts((lhs, rhs, aux)), alpha=0.05,
+                            beta=0.95)
     torch.cuda.synchronize()
-    assert matmul_fused.launches == before + 1
-    want = matmul_fused_plain(lhs.cpu(), rhs.cpu(), aux.cpu(), alpha=0.05,
-                              beta=0.95)
-    err = (got.cpu().double() - want.double()).abs()
-    assert bool((err <= _bound(lhs.cpu(), rhs.cpu(), aux.cpu(), 0.05,
-                               0.95)).all())
+    assert matmul_fused.launches == before + 3
+    assert got.dtype == dl and wide.dtype == torch.float32
+    assert torch.equal(_bits(wide), _bits(on_casts))
+    assert torch.equal(_bits(got), _bits(on_casts.to(dl)))
+    casts = [t.cpu() for t in _f32_casts((lhs, rhs, aux))[:3]]
+    want = matmul_fused_plain(*casts, alpha=0.05, beta=0.95)
+    err = (wide.cpu().double() - want.double()).abs()
+    assert bool((err <= _bound(*casts, 0.05, 0.95)).all())
 
 
-def test_matmul_fused_kernel_rejects_non_f32(cuda):
-    x = torch.ones(4, 4, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
-        matmul_fused(x, x)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int8])
+def test_matmul_fused_kernel_rejects_unsupported_dtypes(cuda, dtype):
+    """f32, bf16 and f16 only, for every operand and the output: no
+    silent cast."""
+    x = torch.ones(4, 4, device=cuda)
+    y = torch.ones(4, 4, device=cuda, dtype=dtype)
+    before = matmul_fused.launches
+    for problem in [(y, x, None, 1.0, 0.0), (x, y, None, 1.0, 0.0),
+                    (x, x, y, 1.0, 1.0), (x, x, None, 1.0, 0.0, dtype)]:
+        with pytest.raises(TypeError, match="float32, bfloat16 and float16"):
+            matmul_fused_group([problem])
+    assert matmul_fused.launches == before
 
 
 def _mixed_group(gen, dev):
@@ -176,6 +215,43 @@ def test_matmul_fused_group_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert matmul_fused.launches == before + 1
     _assert_group_close(problems, got)
+
+
+def test_matmul_fused_group_of_mixed_dtypes(cuda):
+    """The mixed group as SOAP at a bf16 or f16 state_dtype runs it —
+    factors (aux, the Q's) in the 2-byte dtype, G and N in f32, the EMAs
+    written in the factor's dtype and the rotations in f32 — in one
+    launch: each output bitwise the same group on f32 casts (rounded to
+    its dtype), within the bound of the plain version."""
+    def to(x, half):      # the expanded identity keeps its batch stride 0
+        return x[0].to(half).expand(x.shape) if x.stride(0) == 0 \
+            else x.to(half)
+
+    gen = torch.Generator().manual_seed(19)
+    for half in (torch.bfloat16, torch.float16):
+        problems = []
+        for lhs, rhs, aux, alpha, beta in _mixed_group(gen, cuda):
+            if aux is not None and alpha == 0.05:      # the EMA forms
+                problems.append((lhs, rhs, to(aux, half), alpha, beta, half))
+            elif lhs.shape[-1] == lhs.shape[-2]:       # Q @ N
+                problems.append((to(lhs, half), rhs, aux, alpha, beta,
+                                 torch.float32))
+            else:                                      # G @ Q
+                problems.append((lhs, to(rhs, half), aux, alpha, beta,
+                                 torch.float32))
+        # a 2-byte operand at a 2-byte storage offset, 41-element rows
+        big = _randn(gen, 3, 41, 30, dev=cuda).to(half)
+        problems.append((big[:, 1:, 1:], _randn(gen, 3, 29, 13, dev=cuda),
+                         None, 1.0, 0.0, half))
+        before = matmul_fused.launches
+        got = matmul_fused_group(problems)
+        on_casts = matmul_fused_group([_f32_casts(p) for p in problems])
+        torch.cuda.synchronize()
+        assert matmul_fused.launches == before + 2
+        for p, g, w in zip(problems, got, on_casts):
+            assert g.dtype == p[5]
+            assert torch.equal(_bits(g), _bits(w.to(p[5])))
+        _assert_group_close([_f32_casts(p) for p in problems], on_casts)
 
 
 def test_matmul_fused_group_splits_at_the_table_limit(cuda):

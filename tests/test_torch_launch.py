@@ -33,6 +33,9 @@ Tolerances:
     may land one int8 level apart (the block's scale, amax/127) where the
     two sides' f32 deltas straddle a rounding boundary; params and g_G
     within one level of the largest block (2e-4 here).
+  * the fed round's client loop (the dry-run's route) against the vmap
+    route: the dense fed round's tolerances (one client at a time
+    against batched products and a batched optimizer step).
   * remat: 1e-6 relative on loss and params (the same arithmetic
     recomputed); in the fed round, 1e-6 of each leaf's largest entry
     (g_G's over lr), since Sophia's HVP tangents are recomputed in
@@ -409,6 +412,43 @@ def test_fed_round_remat_equals_no_remat(arch, algo, backend):
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
     for a, b, w in zip(tree_leaves(g1), tree_leaves(g0), tree_leaves(p0)):
         assert float((a - b).abs().max()) <= 1e-6 * float(w.abs().max()) / LR
+
+
+@pytest.mark.parametrize("algo", ["fedpac_soap", "fedpac_muon"])
+def test_fed_round_client_loop_equals_the_vmap_route(algo):
+    """``client_loop=True``, the dry-run's route (the clients one after
+    another, each step's gradients from plain autograd, remat by
+    ``torch.utils.checkpoint``), against the ``vmap`` route on plain
+    tensors at the reduced LLaMA: SOAP from an SPD warm start (its step-0
+    QR refresh in both), Muon from a small momentum."""
+    _, cfg, p, batch, gg, clients, k = _fed_inputs()
+    opt = optim.make("soap", eps=1e-3) if algo == "fedpac_soap" else \
+        optim.make("muon")
+    tp = _t(p)
+    r = np.random.default_rng(13)
+    if algo == "fedpac_soap":
+        theta = tree_map(lambda x: torch.from_numpy(_spd(
+            r, x.shape[:-2], x.shape[-1])), opt.get_precond(opt.init(tp)))
+    else:
+        theta = tree_map(lambda x: torch.from_numpy(
+            0.01 * r.standard_normal(x.shape).astype(np.float32)),
+            opt.get_precond(opt.init(tp)))
+    (p0, th0, g0, l0), (p1, th1, g1, l1) = [
+        steps.make_fed_round_step(
+            cfg, opt, lr=LR, clients=clients, local_steps=k, algorithm=algo,
+            client_loop=loop)(tp, theta, _t(gg), _t(batch))
+        for loop in (False, True)]
+    assert abs(float(l1) - float(l0)) <= LOSS_TOL
+    for what, want, got, atol in (("params", p0, p1, 5e-5),
+                                  ("g_global", g0, g1, 5e-5 / LR),
+                                  ("theta", th0, th1, 5e-5)):
+        assert len(tree_leaves(want)) == len(tree_leaves(got)), what
+        for w, g in zip(tree_leaves(want), tree_leaves(got)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL,
+                                       atol=atol, err_msg=what)
+    with pytest.raises(ValueError, match="client_loop"):
+        steps.make_fed_round_step(cfg, opt, lr=LR, client_loop=True,
+                                  executor=ExecutorConfig("chunked"))
 
 
 def test_fed_round_keeps_the_reference_errors():

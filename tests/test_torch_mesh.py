@@ -11,14 +11,19 @@ mesh (the reference test's four combinations, reduced, held to its
 intent: four records, collective bytes on the train step, FLOPs
 everywhere), its counter on a hand-built product with known bytes, and
 2-rank gloo rounds of the ``shard_map`` and ``sharded`` executors against
-the one-process ``vmap`` round.
+the one-process ``vmap`` round, and the replicated QR of SOAP's refresh on
+2-rank DTensors against the QR of the full tensor.
 
-Tolerances: specs, axes, placements, offsets and counts exact; the
-2-rank rounds' losses bitwise, params within 1e-6 and Theta within 1e-6
-relative (a vmap over 2 clients and one over 4 may block the CPU
-products otherwise: tests/test_torch_population.py).
+Tolerances: specs, axes, placements, offsets and counts exact, the QR
+FLOPs of SOAP's refresh exactly the stated formula; the 2-rank rounds'
+losses bitwise, params within 1e-6 and Theta within 1e-6 relative (a
+vmap over 2 clients and one over 4 may block the CPU products otherwise:
+tests/test_torch_population.py); the replicated QR bitwise on a gathered
+shard and within 1e-5 on a partial product (its all-reduce sums in
+another order than the full product).
 """
 import json
+import math
 import os
 import pathlib
 import socket
@@ -248,6 +253,8 @@ DRYRUN = """
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.specs import InputShape
+    from repro_torch import optim
+    from repro_torch.utils.tree import tree_flatten_with_path
 
     out = {}
     with dryrun.fake_process_group(8):
@@ -288,13 +295,52 @@ DRYRUN = """
         out["replicated"] = {
             "flops": low.run()[1].flops.get_total_flops(),
             "whole": low.run_whole().flops.get_total_flops()}
+        # the federated round at the reference's defaults (8 clients x 2
+        # steps; SOAP at bf16 state, its step-0 refresh through the
+        # replicated QR), its clients in a loop on the DTensors
+        cfg = configs.get_reduced("smollm-360m")
+        shape = InputShape("train_4k", 64, 32, "train")
+        _, _, low = dryrun.build_lowering(
+            "smollm-360m", "train_4k", mesh, cfg=cfg, shape_override=shape,
+            step_kind="fed_round", opt_name="soap")
+        rec = dryrun.analyze("smollm-360m", "train_4k", "pod", low, cfg,
+                             shape)
+        out["fed_round"] = {k: rec[k] for k in (
+            "hlo_flops", "rank_flops", "collective_bytes", "dominant")}
+        # SOAP's train step at step 0 (the record's: the refresh) and 1
+        _, _, low = dryrun.build_lowering(
+            "smollm-360m", "train_4k", mesh, cfg=cfg, shape_override=shape,
+            opt_name="soap")
+        flops = {}
+        for step in (0, 1):
+            low.args = (*low.args[:4], step)
+            flops[step] = low.run_whole().flops.get_total_flops()
+        state = optim.make("soap").init(specs._meta(low.args[0]))["mat"]
+        sides = [tuple(x.shape) for path, x in
+                 tree_flatten_with_path(state) if path[-1] in ("L", "R")]
+        out["soap_refresh"] = {"flops": flops, "sides": sides,
+                               "qr": [dryrun.qr_flops(s) for s in sides]}
     with dryrun.fake_process_group(256):
         mesh = make_production_mesh()
         out["production"] = [list(mesh.shape), list(mesh.mesh_dim_names)]
     out["skip_rc"] = dryrun.main(["--arch", "smollm-360m", "--shape",
                                   "long_500k", "--lower-only"])
-    out["fed_rc"] = dryrun.main(["--arch", "smollm-360m", "--shape",
-                                 "train_4k", "--step", "fed_round"])
+    # the CLI's fed_round on the reduced table, at 2 clients x 1 step for
+    # time (the defaults' round runs on the 2x4 mesh above)
+    import functools, tempfile
+    full = configs.get_config
+    configs.get_config = lambda name: configs.reduced(full(name))
+    specs.INPUT_SHAPES["train_4k"] = InputShape("train_4k", 64, 256,
+                                                "train")
+    dryrun.build_lowering = functools.partial(
+        dryrun.build_lowering, fed_clients=2, fed_local_steps=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/fed.jsonl"
+        out["fed_rc"] = dryrun.main(["--arch", "smollm-360m", "--shape",
+                                     "train_4k", "--step", "fed_round",
+                                     "--out", path])
+        with open(path) as f:
+            out["fed_records"] = [json.loads(x) for x in f]
     out["initialised_after"] = dist.is_initialized()
     print("RESULT " + json.dumps(out))
 """
@@ -349,9 +395,37 @@ def test_dryrun_meshes_cli_and_cleanup(dryrun_result):
     assert res["production"] == [[16, 16], ["data", "model"]]
     assert res["skip_rc"] == 0
     assert "SKIP smollm-360m x long_500k" in stdout
-    assert res["fed_rc"] == 1
-    assert "FAIL smollm-360m x train_4k x pod: NotImplementedError" in stdout
+    assert res["fed_rc"] == 0
+    assert "OK smollm-360m x train_4k x pod" in stdout
+    rec, = res["fed_records"]
+    assert (rec["step"], rec["opt"], rec["arch"]) == (
+        "fed_round", "muon", "smollm-360m")
+    assert rec["collective_bytes"] > 0
+    assert rec["rank_flops"] * 256 >= rec["hlo_flops"] > 0
     assert res["initialised_after"] is False
+
+
+def test_dryrun_fed_round_on_the_fake_mesh(dryrun_result):
+    """The round's clients in a loop on the 2x4 mesh's DTensors: its
+    collectives counted, its FLOPs at most what the 8 ranks run."""
+    rec = dryrun_result[0]["fed_round"]
+    assert rec["collective_bytes"] > 0
+    assert rec["rank_flops"] * 8 >= rec["hlo_flops"] > 0
+    assert rec["dominant"] in ("compute", "memory", "collective")
+
+
+def test_dryrun_soap_train_step_counts_its_refresh(dryrun_result):
+    """SOAP's train step at step 0 (the record's) holds the eigenbasis
+    refresh: exactly its power-iteration products (2 b n^3 a side) and
+    QRs (4 n^3 / 3 a matrix: ``qr_flops``) more than at step 1."""
+    r = dryrun_result[0]["soap_refresh"]
+    flops = {int(k): v for k, v in r["flops"].items()}
+    want = sum(2 * math.prod(s[:-2]) * s[-1] ** 3 for s in r["sides"]) \
+        + sum(r["qr"])
+    assert r["sides"] and all(s[-1] == s[-2] for s in r["sides"])
+    assert sum(r["qr"]) == sum(math.prod(s[:-2]) * 4 * s[-1] ** 3 // 3
+                               for s in r["sides"])
+    assert flops[0] - flops[1] == want > 0
 
 
 # ------------------------------------------------------------ 2-rank executors
@@ -418,6 +492,33 @@ TWO_RANKS = """
                         out[name, remat], out["vmap", remat])
             res["vmap_remat_vs_none"] = diffs(out["vmap", True],
                                               out["vmap", False])
+            # SOAP's refresh QR on DTensors: gathered, run whole,
+            # put back in the operand's placements (a partial product as
+            # replicated); bitwise the QR of the full tensor
+            from torch.distributed.tensor import (
+                Replicate, Shard, distribute_tensor)
+            from repro_torch.sharding.ops import qr_q
+            a = torch.randn((3, 6, 6), generator=torch.Generator()
+                            .manual_seed(9))
+            b = torch.randn((3, 6, 6), generator=torch.Generator()
+                            .manual_seed(10))
+            qr_res = {}
+            for name, x, want, placements in [
+                    ("shard1", distribute_tensor(a, mesh, [Shard(1),
+                                                           Replicate()]),
+                     a, [Shard(1), Replicate()]),
+                    ("partial", distribute_tensor(a, mesh, [Shard(2),
+                                                            Replicate()])
+                     @ distribute_tensor(b, mesh, [Shard(1), Replicate()]),
+                     a @ b, [Replicate(), Replicate()])]:
+                q = qr_q(x)
+                qr_res[name] = {
+                    "partial_in": any(p.is_partial() for p in x.placements),
+                    "placements": list(q.placements) == placements,
+                    "max_diff": float((q.full_tensor()
+                                       - torch.linalg.qr(want)[0]).abs()
+                                      .max())}
+            res["qr"] = qr_res
             try:
                 from repro_torch.core.engine import make_cohort_executor
                 make_cohort_executor(ExecutorConfig("shard_map", mesh=mesh))(
@@ -463,3 +564,11 @@ def test_two_rank_shard_map_and_sharded_equal_the_vmap_round(tmp_path):
         assert r["max_param_diff"] <= 1e-6, (name, r)
         assert r["max_theta_rel_diff"] <= 1e-6, (name, r)
     assert "not divisible" in ranks[0]["odd"]
+    qr = ranks[0]["qr"]
+    assert qr["partial"]["partial_in"] and not qr["shard1"]["partial_in"]
+    for name, r in qr.items():
+        assert r["placements"], name
+    # the gathered shard is the full tensor: bitwise its QR; the partial
+    # product is summed in another order, a few f32 ulps of its Q apart
+    assert qr["shard1"]["max_diff"] == 0.0
+    assert qr["partial"]["max_diff"] <= 1e-5

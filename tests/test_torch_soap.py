@@ -196,3 +196,32 @@ def test_zero_theta_and_precond_round_trip_match_jax(cnn_vit_params):
     back = topt.get_precond(topt.set_precond(topt.init(tp),
                                              params_from_numpy(theta, "cpu")))
     _assert_close(theta, back, "set/get precond")
+
+
+def test_soap_bf16_state_step_matches_jax():
+    """One refresh step at ``state_dtype`` bfloat16 from the same bf16
+    warm start: the port's grouped products read the stored bf16 factors
+    and write the EMAs in bf16, the reference casts them around its f32
+    products; factors (bf16 on both sides) and the update agree."""
+    import torch
+    jopt = jax_soap.make(precond_freq=2, state_dtype=jnp.bfloat16)
+    topt = soap.make(precond_freq=2, state_dtype=torch.bfloat16)
+    p = _params(0)
+    theta = jax.tree.map(lambda x: np.asarray(
+        jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)),
+        _spd_theta(jopt, p, 1))
+    jst = jopt.set_precond(jopt.init(p), theta)
+    tp = params_from_numpy(p, "cpu")
+    tst = topt.set_precond(topt.init(tp), params_from_numpy(theta, "cpu"))
+    g = jax.tree.map(lambda x: np.random.default_rng(2).standard_normal(
+        x.shape).astype(np.float32), p)
+    jd, jst = jopt.update(g, jst, p, step=0)
+    td, tst = topt.update(params_from_numpy(g, "cpu"), tst, tp, 0)
+    for path, leaf in tree_flatten_with_path(tst["mat"]):
+        want = torch.bfloat16 if path[-1] in ("L", "R", "QL", "QR") \
+            else torch.float32
+        assert leaf.dtype == want, path
+    _assert_close(jd, td, "direction")
+    _assert_close(jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32)),
+                               jst["mat"]),
+                  tree_map(lambda x: x.float(), tst["mat"]), "state")
