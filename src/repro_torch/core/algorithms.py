@@ -25,7 +25,10 @@ Builtins: ``fedavg``, ``fedcm`` (FedCM's beta pinned to 0.9), the
 every optimizer (SGD, AdamW, Muon, SOAP, Sophia), ``scaffold``,
 ``fedpm_{adamw,sophia,muon,soap}``, and ``<registered>_light`` (the
 rank-r SVD Theta upload), derived on resolution.  ``telemetry=True``
-adds the round's ``obs.telemetry.Telemetry`` to its metrics.
+adds the round's ``obs.telemetry.Telemetry`` to its metrics.  The round
+is traced on the live tracer (``obs.trace.current()``): the cohort's
+local steps and upload encode as ``local_update``, the wire codecs inside
+it as ``encode``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.server import ServerState
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.trace import current as current_tracer
 from repro_torch.optim.api import LocalOptimizer
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -381,11 +385,12 @@ def make_wire_client_step(spec: AlgorithmSpec, local_fn: Callable,
             probe_fn=probe_fn)
         if transport is None:
             return delta, theta_out, algo_out, loss
-        dmsg, decoded, new_residual = T.encode_with_feedback(
-            transport.delta, delta, residual)
+        with current_tracer().span("encode"):
+            dmsg, decoded, new_residual = T.encode_with_feedback(
+                transport.delta, delta, residual)
+            tmsg = (transport.theta.encode(theta_out) if encode_theta
+                    else theta_out)
         dchan = (dmsg, decoded) if (ef_active and not fused) else dmsg
-        tmsg = (transport.theta.encode(theta_out) if encode_theta
-                else theta_out)
         if ef_active:
             out = ((algo_out, new_residual) if has_algo_state
                    else new_residual)
@@ -475,9 +480,10 @@ def build_round_fn(
         ids = torch.as_tensor(cohort, dtype=torch.long, device=dev)
         round_probes = (None if probe_fn is None else
                         functools.partial(probe_fn, seed))
-        dchan, thetas, outs, loss = cohort_step(
-            server.params, theta, server.g_global, ctrl.beta, cstate, ids,
-            batches, seed=seed, probe_fn=round_probes)
+        with current_tracer().span("local_update"):
+            dchan, thetas, outs, loss = cohort_step(
+                server.params, theta, server.g_global, ctrl.beta, cstate,
+                ids, batches, seed=seed, probe_fn=round_probes)
         weights = torch.ones((s,), dtype=torch.float32, device=loss.device)
         total = None
         step = deltas = None

@@ -10,7 +10,8 @@
 rho is 1 for a synchronous round.  ``precond_mixing_weights`` is FedPM's
 curvature-weighted mixing hook.  ``stream_chunk``/``finish_stream`` are
 the streamed forms the chunk pipeline (``fed.pipeline``) folds a cohort
-with, chunk by chunk.
+with, chunk by chunk.  ``aggregate`` and ``aggregate_wire`` are traced as
+the ``aggregate`` span of the live tracer (``obs.trace.current()``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core.drift import drift_metric
 from repro_torch.core.server import ServerState
+from repro_torch.obs.trace import current as current_tracer
 from repro_torch.utils.tree import (
     client_weighted_sum, tree_leaves, tree_map, tree_norm_sq,
 )
@@ -123,13 +125,14 @@ def aggregate(params, theta, g_global, deltas, thetas, weights,
     """One server update from a stacked cohort (thetas None for
     first-order cohorts).  Returns (new_params, new_theta, new_g, metrics).
     """
-    w = weights.to(torch.float32)
-    delta_wsum = client_weighted_sum(deltas, w)
-    theta_stats = (None if thetas is None else
-                   (drift_metric(thetas, w.device),
-                    client_weighted_sum(thetas, w)))
-    return _finish_update(params, theta, g_global, delta_wsum, w, cfg,
-                          theta_stats)
+    with current_tracer().span("aggregate"):
+        w = weights.to(torch.float32)
+        delta_wsum = client_weighted_sum(deltas, w)
+        theta_stats = (None if thetas is None else
+                       (drift_metric(thetas, w.device),
+                        client_weighted_sum(thetas, w)))
+        return _finish_update(params, theta, g_global, delta_wsum, w, cfg,
+                              theta_stats)
 
 
 def aggregate_wire(params, theta, g_global, dmsgs, weights,
@@ -153,31 +156,32 @@ def aggregate_wire(params, theta, g_global, dmsgs, weights,
     if tmsgs is not None and thetas is not None:
         raise ValueError("pass theta uploads as tmsgs (wire) or thetas "
                          "(dense), not both")
-    w = weights.to(torch.float32)
-    b = w.shape[0]
-    delta_wsum = transport.delta.accumulate(dmsgs, w)
+    with current_tracer().span("aggregate"):
+        w = weights.to(torch.float32)
+        b = w.shape[0]
+        delta_wsum = transport.delta.accumulate(dmsgs, w)
 
-    if tmsgs is not None and not transport.theta.lossless:
-        # wire-native drift: Def. 1 decomposed as
-        # mean_i ||Theta_i||^2 - ||mean_i Theta_i||^2, clamped at 0
-        if need_thetas:
-            thetas = transport.theta.decode(tmsgs)
-        sq = transport.theta.sq_norms(tmsgs)
-        usum = transport.theta.accumulate(
-            tmsgs, torch.ones((b,), dtype=torch.float32, device=w.device))
-        ubar_sq = tree_norm_sq(tree_map(lambda x: x / b, usum))
-        drift = torch.clamp(torch.mean(sq) - ubar_sq, min=0.0)
-        theta_stats = (drift, transport.theta.accumulate(tmsgs, w))
-    else:
-        if tmsgs is not None:
-            thetas = transport.theta.decode(tmsgs)
-        theta_stats = (None if thetas is None else
-                       (drift_metric(thetas, w.device),
-                        client_weighted_sum(thetas, w)))
-    out = _finish_update(params, theta, g_global, delta_wsum, w, cfg,
-                         theta_stats)
-    step = tree_map(lambda x: x / b, delta_wsum)
-    return (*out, {"step": step, "thetas": thetas})
+        if tmsgs is not None and not transport.theta.lossless:
+            # wire-native drift: Def. 1 decomposed as
+            # mean_i ||Theta_i||^2 - ||mean_i Theta_i||^2, clamped at 0
+            if need_thetas:
+                thetas = transport.theta.decode(tmsgs)
+            sq = transport.theta.sq_norms(tmsgs)
+            usum = transport.theta.accumulate(
+                tmsgs, torch.ones((b,), dtype=torch.float32, device=w.device))
+            ubar_sq = tree_norm_sq(tree_map(lambda x: x / b, usum))
+            drift = torch.clamp(torch.mean(sq) - ubar_sq, min=0.0)
+            theta_stats = (drift, transport.theta.accumulate(tmsgs, w))
+        else:
+            if tmsgs is not None:
+                thetas = transport.theta.decode(tmsgs)
+            theta_stats = (None if thetas is None else
+                           (drift_metric(thetas, w.device),
+                            client_weighted_sum(thetas, w)))
+        out = _finish_update(params, theta, g_global, delta_wsum, w, cfg,
+                             theta_stats)
+        step = tree_map(lambda x: x / b, delta_wsum)
+        return (*out, {"step": step, "thetas": thetas})
 
 
 # ------------------------------------------------- streamed aggregation

@@ -22,6 +22,11 @@ set, replaces them, as ``build_round_fn``'s does).  Error-feedback
 residuals are stacked ``(N, ...)`` on the device; a dispatch gathers its
 client's row and writes the refreshed row back in place.
 
+A dispatch and a flush each run with the experiment's tracer current
+(``obs.trace.current()``): the wire encode nests an ``encode`` span in
+the dispatch's ``local_update``, and the flush nests ``aggregate`` and
+``telemetry`` spans; the continuous-traffic runtime inherits both.
+
 Algorithms with per-client persistent state (``spec.client_state``,
 SCAFFOLD) are rejected: buffered execution has no lock-step state
 exchange.
@@ -64,6 +69,7 @@ from repro_torch.fed.population import (
 from repro_torch.fed.rounds import FedConfig, resolve_lr
 from repro_torch.fed.staging import stage_client_batches
 from repro_torch.obs.telemetry import telemetry_dict
+from repro_torch.obs.trace import activating
 from repro_torch.utils.hw import resolve_device, synchronize
 from repro_torch.utils.tree import tree_map
 
@@ -173,6 +179,7 @@ class AsyncFederatedExperiment(FedExperiment):
 
     # ------------------------------------------------------------ clients
 
+    @activating
     def _client_payload(self, cid: int):
         """Train client ``cid`` on the current server snapshot (dispatch).
 
@@ -274,6 +281,7 @@ class AsyncFederatedExperiment(FedExperiment):
         tree_map(lambda row, d: row[slot].add_(d[0].to(row.dtype)),
                  self._residuals(), decoded)
 
+    @activating
     def _flush_buffer(self, buffered, stale, weights, *,
                       dropped: int = 0, discarded: int = 0) -> dict:
         """Aggregate a full buffer into one server version: the flush,

@@ -35,9 +35,12 @@ path (``population_size=None``) keeps its shared-generator draw order.
 A round is traced as a ``staging`` and an ``update`` span (population
 staging splits into ``stage_batches`` and ``state_acquire``; a pipelined
 round emits per-chunk spans), an ``eval`` span and one ``round`` event
-carrying the round's ``Telemetry`` when sinks are attached
+carrying the round's ``Telemetry`` and counters when sinks are attached
 (``repro_torch.obs.attach``); the update span then waits for the device,
-so an untraced round keeps its timing.
+so an untraced round keeps its timing.  The round runs with the
+experiment's tracer current (``obs.trace.current()``), so the layers
+inside ``update`` nest their own spans in it: ``local_update`` (with
+``soap_refresh`` and ``encode``), ``aggregate`` and ``telemetry``.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.fed.population import (
 )
 from repro_torch.fed.staging import stage_cohort_batches
 from repro_torch.obs.telemetry import telemetry_dict
+from repro_torch.obs.trace import activating
 from repro_torch.utils.hw import resolve_device, synchronize
 from repro_torch.utils.tree import tree_map
 
@@ -339,6 +343,7 @@ class FederatedExperiment(FedExperiment):
                      if self.state_store is not None else cohort)
         return slots, batches, seeds
 
+    @activating
     def run_round(self):
         t = self.tracer
         rnum = self.server.round + 1   # the round this update produces

@@ -11,11 +11,12 @@ Attach a trace to any experiment (both runtimes):
 
 The trace then carries one ``round`` event per server update (metrics +
 ``Telemetry``: drift norm, beta trajectory, staleness histogram,
-per-client geometry distances, update/correction alignment) plus ``span``
-events for each phase and explicit ``client_dropped`` events from the
-async scheduler.  ``FedExperiment.log_round`` routes through the same
-``Sink`` protocol (``exp.sink``), defaulting to the reference's stdout
-formatting.
+per-client geometry distances, update/correction alignment, and the
+round's ``obs.counters``: kernel launches, Omega copies and draws) plus
+``span`` events for each phase, nested and stamped on the profiler's
+clock, and explicit ``client_dropped`` events from the async scheduler.
+``FedExperiment.log_round`` routes through the same ``Sink`` protocol
+(``exp.sink``), defaulting to the reference's stdout formatting.
 """
 from repro_torch.obs.bench import (  # noqa: F401
     BENCH_SCHEMA_VERSION, make_bench, read_bench, validate_bench,

@@ -30,16 +30,22 @@ Theta (651 MB for ViT-Tiny SOAP's 20,348,928-float Theta, 27 GiB for
 SmolLM-360M's 901,120,000).  A card keeps copies up to
 ``DEVICE_OMEGA_BYTES`` in all; a projection beyond that crosses to the
 card for each use and is freed after it, so the sketch never holds a
-transformer's projections on the card beside its training state.
+transformer's projections on the card beside its training state.  Those
+copies' bytes are counted as ``omega.h2d_bytes`` and the draws' host
+seconds as ``omega.draw_s`` (``obs.counters``); ``collect`` is traced as
+the ``telemetry`` span of the live tracer (``obs.trace.current()``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import time
 
 import torch
 
+from repro_torch.obs import counters
+from repro_torch.obs.trace import current as current_tracer
 from repro_torch.utils.tree import (
     client_weighted_sum, tree_dot, tree_leaves, tree_map, tree_norm_sq,
 )
@@ -87,13 +93,18 @@ def sketch_omega(index: int, width: int, rank: int, device):
     if (sum(x.nbytes for x in _on_device.values()) + kept.nbytes
             <= DEVICE_OMEGA_BYTES):
         _on_device[key] = kept
+    else:
+        counters.add("omega.h2d_bytes", omega.nbytes)
     return kept
 
 
 @functools.lru_cache(maxsize=None)
 def _omega(index: int, width: int, rank: int):
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(_SKETCH_KEY + index)
-    return torch.randn((width, rank), generator=gen) / math.sqrt(rank)
+    omega = torch.randn((width, rank), generator=gen) / math.sqrt(rank)
+    counters.add("omega.draw_s", time.perf_counter() - t0)
+    return omega
 
 
 def client_geom_dist(thetas, s: int, rank: int = SKETCH_RANK, *, device):
@@ -129,25 +140,27 @@ def collect(*, deltas=None, step=None, thetas, weights, g_global, ctrl,
     if (deltas is None) == (step is None):
         raise ValueError("pass exactly one of deltas (stacked cohort) or "
                          "step (precomputed weighted client mean)")
-    w = weights.to(torch.float32)
-    s = w.shape[0]
-    if step is None:
-        step = tree_map(lambda x: x / s, client_weighted_sum(deltas, w))
-    cos = (-tree_dot(step, g_global)
-           / (torch.sqrt(tree_norm_sq(step) * tree_norm_sq(g_global))
-              + 1e-12))
-    if staleness is None:
-        staleness = torch.zeros((s,), dtype=torch.int32, device=w.device)
-    return Telemetry(
-        drift=agg_metrics["drift"].to(torch.float32),
-        norm_drift=agg_metrics["norm_drift"].to(torch.float32),
-        freshness=agg_metrics["freshness"].to(torch.float32),
-        beta=ctrl.beta.to(torch.float32),
-        beta_next=new_ctrl.beta.to(torch.float32),
-        drift_ema=new_ctrl.drift_ema.to(torch.float32),
-        update_corr_cos=cos.to(torch.float32),
-        client_geom_dist=client_geom_dist(thetas, s, device=w.device),
-        staleness_hist=staleness_histogram(staleness))
+    with current_tracer().span("telemetry"):
+        w = weights.to(torch.float32)
+        s = w.shape[0]
+        if step is None:
+            step = tree_map(lambda x: x / s, client_weighted_sum(deltas, w))
+        cos = (-tree_dot(step, g_global)
+               / (torch.sqrt(tree_norm_sq(step) * tree_norm_sq(g_global))
+                  + 1e-12))
+        if staleness is None:
+            staleness = torch.zeros((s,), dtype=torch.int32,
+                                    device=w.device)
+        return Telemetry(
+            drift=agg_metrics["drift"].to(torch.float32),
+            norm_drift=agg_metrics["norm_drift"].to(torch.float32),
+            freshness=agg_metrics["freshness"].to(torch.float32),
+            beta=ctrl.beta.to(torch.float32),
+            beta_next=new_ctrl.beta.to(torch.float32),
+            drift_ema=new_ctrl.drift_ema.to(torch.float32),
+            update_corr_cos=cos.to(torch.float32),
+            client_geom_dist=client_geom_dist(thetas, s, device=w.device),
+            staleness_hist=staleness_histogram(staleness))
 
 
 def telemetry_dict(t: Telemetry) -> dict:

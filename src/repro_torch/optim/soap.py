@@ -36,7 +36,8 @@ a library call, as the reference leaves it to XLA; so does the QR
 (``sharding.ops.qr_q``: on a DTensor, the dry-run's, it runs on
 the replicated product).  The ``"ns"`` refresh orthogonalises every side
 of every matrix leaf in one ``newton_schulz_group`` call: one
-``newton_schulz`` launch a refresh.
+``newton_schulz`` launch a refresh.  The refresh is traced as the
+``soap_refresh`` span of the live tracer (``obs.trace.current()``).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import torch
 from repro_torch.kernels.ns_ortho.kernel import matmul_fused_group
 from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
+from repro_torch.obs.trace import current as current_tracer
 from repro_torch.optim.api import LocalOptimizer, as_matrix, matrix_mask
 from repro_torch.sharding.ops import qr_q
 from repro_torch.utils.tree import (
@@ -145,12 +147,13 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
         # the refresh's operands (f32 casts, as the reference's) are made
         # one pair at a time and dropped after its QR
         if step % precond_freq == 0:
-            sides = [(st, q, f) for st in new
-                     for q, f in (("QL", "L"), ("QR", "R")) if q in st]
-            qs = iter(_eig_refresh(((st[f].to(f32), st[q].to(f32))
-                                    for st, q, f in sides), eig_method))
-            for st, q, _ in sides:
-                st[q] = next(qs).to(sd)
+            with current_tracer().span("soap_refresh"):
+                sides = [(st, q, f) for st in new
+                         for q, f in (("QL", "L"), ("QR", "R")) if q in st]
+                qs = iter(_eig_refresh(((st[f].to(f32), st[q].to(f32))
+                                        for st, q, f in sides), eig_method))
+                for st, q, _ in sides:
+                    st[q] = next(qs).to(sd)
 
         # 3-4. G' = Q_L^T G Q_R
         rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))

@@ -109,10 +109,12 @@ def _mismatches(want_hist, got_hist, tol, rel_tol):
 def _skeleton(events):
     """What a trace must repeat exactly: event types, phases, rounds,
     client ids, drop reasons and versions (run_id, seq, dur_s and float
-    metrics excluded)."""
+    metrics excluded), of the top-level events: the spans the port nests
+    in a dispatch or a flush are its own."""
     keys = ("event", "phase", "round", "client_id", "reason", "version",
             "sim_time")
-    return [tuple(e.get(k) for k in keys) for e in events]
+    return [tuple(e.get(k) for k in keys) for e in events
+            if "parent" not in e]
 
 
 # ------------------------------------------------------------- scheduler

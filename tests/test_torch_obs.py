@@ -252,8 +252,10 @@ def test_sync_round_telemetry_and_trace_match_reference(
 
     def skeleton(events):
         return [(e["event"], e.get("phase"), e.get("round"))
-                for e in events]
+                for e in events if "parent" not in e]
 
+    # the reference's events against the port's top-level ones; the
+    # layers nested in the port's update span are its own
     assert skeleton(sink.events) == skeleton(want_events)
     assert [e["seq"] for e in sink.events] == list(range(len(sink.events)))
     assert {e["run_id"] for e in sink.events} == {tracer.run_id}
@@ -281,7 +283,9 @@ def test_sync_round_telemetry_and_trace_match_reference(
     # detached (the default): no events, the counters still advance
     exp.tracer = Tracer()
     exp.run(1)
-    assert exp.tracer.rounds == 0 and exp.tracer.spans == 3
+    # staging, update (local_update, soap_refresh, encode, aggregate,
+    # telemetry inside it) and eval
+    assert exp.tracer.rounds == 0 and exp.tracer.spans == 8
 
 
 def test_log_round_routes_through_the_sink(capsys):

@@ -146,10 +146,12 @@ def _build(jax_side, algo, tc, acfg=None, **kw):
 
 def _skeleton(events):
     """The event stream a run must repeat exactly (run_id, seq, dur_s and
-    float metrics excluded)."""
+    float metrics excluded), top-level events only: the spans the port
+    nests in a dispatch or a flush are its own."""
     keys = ("event", "phase", "round", "client_id", "reason", "version",
             "in_flight", "sim_time", "algorithm")
-    return [tuple(e.get(k) for k in keys) for e in events]
+    return [tuple(e.get(k) for k in keys) for e in events
+            if "parent" not in e]
 
 
 def _mismatches(want, got):

@@ -23,11 +23,16 @@ as the 4-chunk pipeline, and also prints the traced round's
 ``lm_zipf`` at vocab 32000, seq 256, batch 16, 8 clients at participation
 0.25, K=5, with the algorithm's own defaults), warms up one round, then
 traces one round with
-``torch.profiler`` (CPU and CUDA activities) and prints: the round's wall
-time, the summed device time of all CUDA kernels and the device-busy share
-(kernel time over wall time), device time grouped by kind of work (with
-the largest kernels of each group, so the grouping can be checked), and
-the top operators by device time and by host time.  The full tables go to
+``torch.profiler`` (CPU and CUDA activities) and a ``MemorySink``
+attached (so the round's spans wait for the card, as a traced round's
+do: an async flush's dispatches then run one after another) and prints: the round's wall time, the summed device time of all
+CUDA kernels and the device-busy share (the union of the device
+operations' intervals over the window, not the sum of their times), for
+each program span its host ms and the card's idle ms while it was the
+innermost span open (both from the spans' ``t0_ns``/``t1_ns`` stamps,
+on the profiler's clock), the round's counters, device time grouped by
+kind of work (with the largest kernels of each group, so the grouping
+can be checked), and the top operators by device time and by host time.  The full tables go to
 ``<out>/profile_round.txt`` (default ``build/profile/``, gitignored).
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -92,7 +97,9 @@ def main():
         ASYNC_SEED, LIGHT_RANK, LM_FL, POP_SIZE, POP_VIT, QBLOCK, SOPHIA_LR,
         async_config, card_line, llama60m_spec, pop_scenario, vit_tiny_spec,
     )
+    from fedbench import devtrace, spanidle
     from repro_torch.api import build_experiment, materialize, resolve
+    from repro_torch.obs import MemorySink, attach
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -134,12 +141,17 @@ def main():
     plain_wall = time.perf_counter() - t0
     sched = getattr(exp, "scheduler", None)    # the async runtime's
     d0 = sched._seq if sched is not None else 0
+    sink = MemorySink()
+    attach(exp, sink)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0_ns = time.time_ns()
         t0 = time.perf_counter()
         exp.run_round()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        window = (time.time_ns() - t0_ns) * 1e-9
+    attach(exp)
 
     events = prof.key_averages()
     dev_attr = ("self_device_time_total" if hasattr(events[0],
@@ -152,10 +164,29 @@ def main():
                 and str(e.device_type).endswith("CUDA"):
             kernel_us[e.key] += us
     total_ms = sum(kernel_us.values()) / 1e3
+    # the profiler stamps device operations on the epoch clock the spans'
+    # t0_ns/t1_ns read, so both go on the window's seconds directly
+    ops = [devtrace.Op(n, (s - t0_ns) * 1e-9, d * 1e-9)
+           for n, s, d in devtrace.device_ops(prof)]
+    busy = devtrace.busy_seconds(ops, 0.0, window)
     print(f"round {exp.server.round}: wall {wall:.3f} s traced, "
           f"{plain_wall:.3f} s untraced; CUDA kernel time {total_ms:.1f} ms; "
-          f"device busy {100 * total_ms / 1e3 / wall:.1f}% of the traced "
-          f"wall time")
+          f"device busy {100 * busy / window:.1f}% of the traced window "
+          "(the union of the device operations' intervals)")
+    spans = [(e["phase"], (e["t0_ns"] - t0_ns) * 1e-9,
+              (e["t1_ns"] - e["t0_ns"]) * 1e-9)
+             for e in sink.events if e["event"] == "span"]
+    host = collections.Counter()
+    for name, _, dur in spans:
+        host[name] += dur
+    idle = spanidle.idle_by_span(ops, spans, 0.0, window)
+    print("  span                host ms   card idle ms (innermost span)")
+    for name in sorted(set(host) | set(idle), key=lambda n: -host.get(n, 0)):
+        print(f"  {name:18s} {1e3 * host.get(name, 0.0):9.1f} "
+              f"{1e3 * idle.get(name, 0.0):12.1f}")
+    counts = sink.rounds()[-1].get("counters", {})
+    print("  counters " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                    if v))
     if sched is not None:
         print(f"  the traced flush waited for {sched._seq - d0} "
               f"dispatches (one client each)")
