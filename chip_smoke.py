@@ -215,7 +215,25 @@ MUON_LIGHT = dict(delta_codec="qblock", theta_codec="lowrank_svd+qblock",
 # are <= 0.3; the quintic map can grow a roundoff by up to 3.4445 a step
 NS_TOL = 1e-4
 CUDA_SOURCES = ("matmul_fused.cu", "sophia_update.cu", "qblock.cu",
-                "fused_agg.cu", "newton_schulz.cu")
+                "fused_agg.cu", "newton_schulz.cu", "householder_qr.cu")
+# the Householder QR kernel's sizes (SOAP's refresh): ViT-Tiny's sides at
+# the benchmark cell's cohort of 20, SmolLM-360M's at S=2 (64 factors a
+# side); and a group on each side of its routing rule (``takes``: the
+# matrices fit shared memory or fill the card), as (count, side): SmolLM-
+# 360M's make_train_step group at bf16 state of one 2,560 and one 960
+# side (64 matrices: torch.linalg.qr), one 2,560^2, as many 2,560^2 as
+# the card holds CTAs (None: the kernel), one matrix at SOAP's
+# max_precond_dim.  Against torch.linalg.qr on inputs with singular values
+# in [2, 4] its Q agrees to rounding (LAPACK's conventions), within QR_TOL
+# of the columns
+QR_VIT_S = 20
+QR_VIT_SIDES = [k for m, n in VIT_LEAVES for k in (m, n)] * VIT_TINY["layers"]
+QR_MAX_SIDE = 8192
+QR_ROUTE = {"smollm-360m bf16 group": [(32, 2560), (32, 960)],
+            "one 2560^2": [(1, 2560)],
+            "2560^2 filling the card": [(None, 2560)],
+            f"one {QR_MAX_SIDE}^2": [(1, QR_MAX_SIDE)]}
+QR_TOL = 1e-4
 # the buffered-async runtime: examples/async_quickstart.py's latency model
 # with 5 of 10 in-flight clients buffered a flush; the runtime's seed 5
 # makes dropouts happen in 3 flushes (and, with max_staleness=1,
@@ -334,6 +352,7 @@ SMOL_ROUNDS = 2
 SMOL_LAYERS = 32
 SMOL_LEAVES = ([(960, 960), (960, 320), (960, 320), (960, 960)]
                + [(960, 2560)] * 2 + [(2560, 960)])
+QR_SMOL_SIDES = [k for m, n in SMOL_LEAVES for k in (m, n)]
 # the rest of the model zoo served at full width (f32, TF32 off), batch 8,
 # prompt 256, 32 greedy tokens, each in a fresh process: Falcon-Mamba-7B
 # and RecurrentGemma-2B unreduced through launch.serve.main; Mixtral-8x22B
@@ -393,6 +412,11 @@ TRAIN_STEP_LAUNCHES = {"muon": {"newton_schulz": 1, "matmul_fused": 0,
                        "soap": {"matmul_fused": 5, "adam_moments": 11,
                                 "newton_schulz": 0},
                        "sophia": {"sophia_update": 1, "newton_schulz": 0}}
+# householder_qr launches over the 3 steps (SOAP's refresh at step 0): at
+# bf16 state the refresh's sides go in 4 groups (refresh_groups), of which
+# the kernel takes the first (288 matrices of 960 and 320) and
+# torch.linalg.qr the others (64, 64 and 32 matrices, 2,560 and 960)
+TRAIN_STEP_QR = {"muon": 0, "soap": 1, "sophia": 0}
 # the reduced table GPU vs the CPU port, f32: the matrix leaves within
 # five times the CPU parity test's 2e-5 + 1e-4 relative
 # (tests/test_torch_launch.py) for two devices' sum orders, as TABLE_TOL
@@ -590,6 +614,14 @@ def build_kernels(dev):
         f"cp.async ring ({smem} B dynamic shared memory), {threads} "
         f"threads, {lib.resident_blocks()} persistent blocks on the card, "
         f"<= {max_m} matrices per launch ({table} B table)")
+    from repro_torch.kernels.householder_qr import kernel as hqr
+    lib = hqr.kernel_library()
+    nb, cw, rc, threads, max_r, _, _, table, smem, big = lib.config
+    log(f"householder_qr: panels of {nb}, trailing chunks of {cw} columns "
+        f"x {rc} rows, {threads} threads, {smem} B dynamic shared memory "
+        f"({big} floats for a resident matrix or a staged panel), "
+        f"{lib.resident_blocks()} persistent blocks on the card, <= {max_r} "
+        f"records per launch ({table} B table)")
     lib = sophia.kernel_library()
     threads, chunk, max_l, _, table = lib.config
     log(f"sophia_update: {lib.resident_blocks()} persistent blocks of "
@@ -1535,6 +1567,196 @@ def smollm_newton_schulz(dev):
     return dict(err=err, timings=time_newton_schulz(mats, what, reps=2))
 
 
+def qr_inputs(sides, s, dev, gen):
+    """One (s, k, k) input a side: G/sqrt(k) + 3 I, singular values in
+    about [2, 4], so every column of Q is well determined."""
+    return [torch.randn((s, k, k), generator=gen, device=dev) / math.sqrt(k)
+            + 3 * torch.eye(k, device=dev) for k in sides]
+
+
+def check_householder_qr(xs, what, plain=True):
+    """The kernel on copies of ``xs`` (one launch): Q^T Q against I, the
+    reconstruction Q (Q^T A) against A, the columns against
+    ``torch.linalg.qr``'s (within ``QR_TOL``) and, with ``plain``,
+    ``householder_qr_plain``'s; two calls bitwise equal.  Returns the
+    worst gaps."""
+    from repro_torch.kernels.householder_qr.kernel import (
+        householder_qr_group, householder_qr_plain,
+    )
+    before = householder_qr_group.launches
+    got = householder_qr_group([x.clone() for x in xs])
+    torch.cuda.synchronize()
+    if householder_qr_group.launches - before != 1:
+        raise AssertionError(f"householder_qr on {what}: "
+                             f"{householder_qr_group.launches - before} "
+                             "launches, want 1")
+    again = householder_qr_group([x.clone() for x in xs])
+    worst = dict.fromkeys(("orth", "recon", "lapack", "plain"), 0.0)
+    for x, q, q2 in zip(xs, got, again):
+        if not torch.equal(q, q2):
+            raise AssertionError(f"householder_qr on {what} "
+                                 f"{tuple(x.shape)}: two calls differ")
+        eye = torch.eye(x.shape[-1], device=x.device)
+        worst["orth"] = max(worst["orth"], float(
+            (q.transpose(-1, -2) @ q - eye).abs().max()))
+        rec = q @ (q.transpose(-1, -2) @ x) - x
+        worst["recon"] = max(worst["recon"], float(
+            torch.linalg.vector_norm(rec) / torch.linalg.vector_norm(x)))
+        worst["lapack"] = max(worst["lapack"], float(
+            (q - torch.linalg.qr(x)[0]).abs().max()))
+        if plain:
+            worst["plain"] = max(worst["plain"], float(
+                (q - householder_qr_plain([x])[0]).abs().max()))
+    if max(worst["lapack"], worst["plain"]) > QR_TOL or worst["orth"] > 1e-5:
+        raise AssertionError(f"householder_qr on {what}: {worst}")
+    log(f"householder_qr on {what}: 1 launch, two calls bitwise equal; "
+        f"max |Q^T Q - I| {worst['orth']:.2e}, ||Q Q^T A - A|| / ||A|| "
+        f"{worst['recon']:.2e}, max |Q - torch.linalg.qr| "
+        f"{worst['lapack']:.2e}, vs plain "
+        + (f"{worst['plain']:.2e}" if plain else "not compared")
+        + f" (tol {QR_TOL})")
+    return worst
+
+
+def time_householder_qr(xs, what, reps=3, rounds=3, trace=True):
+    """A refresh's QR of ``xs``: the kernel (one launch, in place on its
+    own copies: a QR of an orthogonal matrix does the same work), its plain
+    version on the inputs stacked by size, and ``torch.linalg.qr`` one
+    call a side as the port called it, beside the card's bound for the
+    work (``qr_flops`` at the FP32 rate; one read and one write of each
+    matrix).  Device times from a trace with ``trace``; a trace of a
+    launch that runs for seconds came back without it (Kineto), so the
+    large sizes give CUDA events' times alone."""
+    from repro_torch.kernels.householder_qr.kernel import (
+        householder_qr_group, householder_qr_plain, qr_flops,
+    )
+    flops = sum(x.numel() // x.shape[-1] ** 2 * qr_flops(*x.shape[-2:])
+                for x in xs)
+    bytes_ = 8 * sum(x.numel() for x in xs)
+    bound = max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    by = "bytes" if bytes_ / HBM_BYTES_PER_S > flops / FP32_FLOPS \
+        else "operations"
+    bufs = [x.clone() for x in xs]
+    by_size: dict = {}
+    for x in xs:
+        by_size.setdefault(tuple(x.shape[-2:]), []).append(x)
+    stacks = [torch.cat([x.reshape(-1, *k) for x in v]) for k, v in
+              by_size.items()]
+    fns = {"k": lambda: householder_qr_group(bufs),
+           "l": lambda: [torch.linalg.qr(x) for x in xs]}
+    t = {k: timed(fn, reps=reps, rounds=rounds) for k, fn in fns.items()}
+    d = {k: device_ms(fn, floor_ms=bound) if trace else float("nan")
+         for k, fn in fns.items()}
+    t["p"] = timed(lambda: householder_qr_plain(stacks), reps=1, rounds=1)
+    del stacks, bufs
+    log(f"householder_qr, {what} ({len(xs)} records, "
+        f"{sum(x.numel() // x.shape[-1] ** 2 for x in xs)} matrices, "
+        f"{flops / 1e9:.1f} GFLOP): kernel (1 launch) {t['k']:.3f} ms, plain "
+        f"{t['p']:.3f} ms, torch.linalg.qr ({len(xs)} calls) "
+        f"{t['l']:.3f} ms; device time {d['k']:.3f} / {d['l']:.3f} ms; "
+        f"bound {bound:.3f} ms ({by}): {100 * bound / t['k']:.1f}% of the "
+        f"bound by events; {t['l'] / t['k']:.2f}x torch.linalg.qr's time")
+    return dict(ms=t["k"], plain_ms=t["p"], library_ms=t["l"],
+                bound_ms=bound, bound_by=by,
+                device_ms=d["k"] if trace else None,
+                library_device_ms=d["l"] if trace else None,
+                gflop=flops / 1e9)
+
+
+def time_route(dev, gen):
+    """The kernel (one launch, forced) against ``torch.linalg.qr`` (one
+    call a side) on each group of ``QR_ROUTE``, beside the route SOAP's
+    refresh takes (``takes_group``): the kernel timed by CUDA events over
+    one call (it is built and set up by then; a single large matrix runs
+    for seconds on one CTA), the library after a warm-up call; the
+    kernel's Q against the library's and Q^T Q against I.  Returns a row a
+    group."""
+    from repro_torch.kernels.householder_qr import kernel as hqr
+    resident = hqr.kernel_library().resident_blocks()
+    rows = []
+    for what, sides in QR_ROUTE.items():
+        xs = [qr_inputs([k], resident if c is None else c, dev, gen)[0]
+              for c, k in sides]
+        bufs = [x.clone() for x in xs]
+        takes = hqr.takes_group(xs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        hqr.householder_qr_group(bufs)
+        end.record()
+        end.synchronize()
+        k_ms = start.elapsed_time(end)
+        l_ms = timed(lambda: [torch.linalg.qr(x) for x in xs], reps=1,
+                     rounds=1)
+        lapack = max(float((q - torch.linalg.qr(x)[0]).abs().max())
+                     for x, q in zip(xs, bufs))
+        orth = max(float((q.mT @ q - torch.eye(
+            q.shape[-1], device=dev)).abs().max()) for q in bufs)
+        if lapack > QR_TOL or orth > 1e-5:
+            raise AssertionError(f"householder_qr on {what}: max |Q - "
+                                 f"torch.linalg.qr| {lapack:.2e}, max |Q^T Q "
+                                 f"- I| {orth:.2e}")
+        count = sum(x.numel() // x.shape[-1] ** 2 for x in xs)
+        route = "kernel" if takes else "torch.linalg.qr"
+        log(f"householder_qr routing, {what} ({count} matrices): the refresh "
+            f"takes {route}; kernel {k_ms:.3f} ms, torch.linalg.qr "
+            f"{l_ms:.3f} ms ({len(xs)} calls), the route "
+            f"{'as fast or faster' if (k_ms <= l_ms) == takes else 'slower'}"
+            f"; max |Q - torch.linalg.qr| {lapack:.2e}, max |Q^T Q - I| "
+            f"{orth:.2e}")
+        flops = sum(x.numel() // x.shape[-1] ** 2 * hqr.qr_flops(
+            *x.shape[-2:]) for x in xs)
+        rows.append(dict(what=what, matrices=count, route=route,
+                         kernel_ms=k_ms, library_ms=l_ms, lapack=lapack,
+                         orth=orth, gflop=flops / 1e9,
+                         bound_ms=flops / FP32_FLOPS * 1e3))
+        del xs, bufs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def householder_qr_rows(dev):
+    """The Householder QR kernel held and timed at the refresh of the
+    ViT-Tiny cell (S=20: 96 sides of 20) and of SmolLM-360M's SOAP at S=2
+    (14 sides of 64), and on a group each side of its routing rule
+    (``time_route``).  Also a rank-deficient input (L after one EMA step)
+    and a zero one.  Returns each size's gaps and timings, and the
+    routing's rows."""
+    from repro_torch.kernels.householder_qr.kernel import (
+        householder_qr_group,
+    )
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((QR_VIT_S, 192, 64), generator=gen, device=dev)
+    low = [0.05 * g @ g.transpose(1, 2), torch.zeros(3, 576, 576, device=dev)]
+    q = householder_qr_group([x.clone() for x in low])
+    eye = torch.eye(192, device=dev)
+    orth = float((q[0].transpose(1, 2) @ q[0] - eye).abs().max())
+    zero_to_eye = torch.equal(q[1], torch.eye(576, device=dev).expand_as(
+        q[1]))
+    if orth > 1e-5 or not zero_to_eye:
+        raise AssertionError(f"householder_qr on L of rank 64: max |Q^T Q - "
+                             f"I| {orth:.2e}; a zero input gives I: "
+                             f"{zero_to_eye}")
+    log(f"householder_qr on L = 0.05 G G^T of rank 64 (S={QR_VIT_S}, 192): "
+        f"max |Q^T Q - I| {orth:.2e}; a zero input gives I")
+    out = {}
+    cases = (("vit", f"ViT-Tiny's refresh (S={QR_VIT_S})",
+              qr_inputs(QR_VIT_SIDES, QR_VIT_S, dev, gen), True, {}),
+             ("smol", f"SmolLM-360M's refresh (S={LM_S})",
+              qr_inputs(QR_SMOL_SIDES, LM_S * SMOL_LAYERS, dev, gen), False,
+              dict(reps=1, rounds=1)))
+    for key, what, xs, plain, kw in cases:
+        err = check_householder_qr(xs, what, plain=plain)
+        out[key] = dict(err=err, timings=time_householder_qr(
+            xs, what, trace=plain, **kw))
+        del xs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["route"] = time_route(dev, gen)
+    return out
+
+
 # -------------------------------------------------------------- main path
 
 def vit_tiny_spec():
@@ -1548,6 +1770,9 @@ def vit_tiny_spec():
 
 def kernel_wrappers():
     from repro_torch.kernels.fused_agg.kernel import dequant_accumulate
+    from repro_torch.kernels.householder_qr.kernel import (
+        householder_qr_group,
+    )
     from repro_torch.kernels.ns_ortho.kernel import matmul_fused
     from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
     from repro_torch.kernels.qblock.kernel import quantize
@@ -1556,7 +1781,8 @@ def kernel_wrappers():
     return {"adam_moments": adam_moments, "matmul_fused": matmul_fused,
             "sophia_update": sophia_update, "quantize": quantize,
             "dequant_accumulate": dequant_accumulate,
-            "newton_schulz": newton_schulz_group}
+            "newton_schulz": newton_schulz_group,
+            "householder_qr": householder_qr_group}
 
 
 def run_experiment(label, exp, expect=(), finite=FINITE):
@@ -1705,7 +1931,7 @@ def main_paths(vit_shapes, cnn_shapes):
     total = dict.fromkeys(kernel_wrappers(), 0)
 
     def drive(label, exp, expect, mf_step=5, ns_step=0, ns_refresh=0,
-              dq_round=3):
+              dq_round=3, qr_refresh=None):
         hist, launches = run_experiment(label, exp, expect)
         for name, n in launches.items():
             total[name] += n
@@ -1719,11 +1945,15 @@ def main_paths(vit_shapes, cnn_shapes):
         # flushes 3 times (delta, theta twice; a lowrank_svd+qblock theta
         # peels to the low-rank GEMM, so only the delta's).  newton_schulz
         # is checked on every path: 0 where neither Muon nor a "ns"
-        # refresh runs it
+        # refresh runs it; householder_qr, where given, one launch a QR
+        # refresh (once a round at K = precond_freq = 10)
         steps = exp.fed.local_steps * exp.fed.rounds
         checked = set(expect) | {"newton_schulz"} | (
-            {"matmul_fused"} if ns_step else set())
+            {"matmul_fused"} if ns_step else set()) | (
+            {"householder_qr"} if qr_refresh is not None else set())
         for name, want, what in (
+                ("householder_qr", (qr_refresh or 0) * exp.fed.rounds,
+                 f"{qr_refresh} per refresh"),
                 ("matmul_fused", mf_step * steps, f"{mf_step} per local step"),
                 ("newton_schulz",
                  ns_step * steps + ns_refresh * exp.fed.rounds,
@@ -1741,7 +1971,8 @@ def main_paths(vit_shapes, cnn_shapes):
     vit_soap = {}
     for algo in ("local_soap", "fedpac_soap"):
         vit_soap[algo] = drive(f"vit_tiny {algo}", build_experiment(
-            algo, scenario=vit, participation=0.5, rounds=ROUNDS), soap_k)
+            algo, scenario=vit, participation=0.5, rounds=ROUNDS), soap_k,
+            qr_refresh=1)
     cnn_gpu = drive("cifar_like_cnn fedpac_soap", build_experiment(
         "fedpac_soap", scenario=cnn, rounds=ROUNDS,
         opt_kwargs={"eps": CNN_EPS}), soap_k)
@@ -1786,7 +2017,7 @@ def main_paths(vit_shapes, cnn_shapes):
     drive("vit_tiny fedpac_soap eig_method=ns", build_experiment(
         "fedpac_soap", scenario=vit, participation=0.5, rounds=ROUNDS,
         opt_kwargs={"eig_method": "ns"}), soap_k + ("newton_schulz",),
-        ns_refresh=1)
+        ns_refresh=1, qr_refresh=0)
 
     # the CNN against the CPU path: Muon (its stem conv flattens tall, so
     # it is orthogonalised as its transpose), then the SGD baselines
@@ -3367,6 +3598,10 @@ def train_step_smollm(total):
             if launches[k] != per * TRAIN_STEP["steps"]:
                 raise AssertionError(f"{label}: {launches[k]} {k} launches, "
                                      f"want {per} a step")
+        if launches["householder_qr"] != TRAIN_STEP_QR[name]:
+            raise AssertionError(f"{label}: {launches['householder_qr']} "
+                                 f"householder_qr launches, want "
+                                 f"{TRAIN_STEP_QR[name]}")
         if any(x.dtype != torch.bfloat16 for x in tree_leaves(p)):
             raise AssertionError(f"{label}: params left bf16")
         # (a norm scale at 1.0 may not move: its step is below half a
@@ -3658,8 +3893,11 @@ def fed_round_llama350m(dev, clients=FED_ROUND_350M["clients"]):
     peak = max(peaks.values())
     launches = read_launches(wrappers)
     label = f"fed_round llama-350m fedpac_soap remat {c} clients"
+    # the refresh at step 0 at bf16 state: 4 groups (refresh_groups) of
+    # 864 (1,024), 192 (2,736 and 1,024), 192 (2,736) and 96 (1,024)
+    # matrices; the kernel takes the first three
     want = {"matmul_fused": 5 * k, "adam_moments": 11 * k,
-            "newton_schulz": 0}
+            "newton_schulz": 0, "householder_qr": 3}
     for name, w in want.items():
         if launches[name] != w:
             raise AssertionError(f"{label}: {launches[name]} {name} "
@@ -3984,6 +4222,12 @@ def smollm_training(total):
         if launches[name] != per * steps:
             raise AssertionError(f"{label}: {launches[name]} {name} "
                                  f"launches, want {per} x {steps} steps")
+    # the refresh at each round's step 0: 896 matrices at f32 state, one
+    # householder_qr launch
+    if launches["householder_qr"] != SMOL_ROUNDS:
+        raise AssertionError(f"{label}: {launches['householder_qr']} "
+                             f"householder_qr launches, want one a round "
+                             f"({SMOL_ROUNDS})")
     # the round's loss (the mean over its K steps) and the eval loss after
     # it both below the untrained model's
     if not loss0 > max(hist[-1]["loss"], hist[-1]["eval_loss"]):
@@ -4008,24 +4252,23 @@ def smollm_training(total):
 
 def time_smollm_refresh():
     """SOAP's eigenbasis refresh as a SmolLM-360M round makes it at its
-    step 0 (``optim.soap._eig_refresh`` with QR): every side of the 7
-    stacked matrix leaves at S=2, 64 factors a side (3 of 2,560^2, 9 of
-    960^2, 2 of 320^2), on Gaussian factors (one Q a size, read by every
-    side of that size).  Returns its ms by CUDA events."""
+    step 0 (``optim.soap._eig_refresh`` with QR, f32 state: one
+    ``householder_qr`` launch): every side of the 7 stacked matrix leaves
+    at S=2, 64 factors a side (3 of 2,560^2, 9 of 960^2, 2 of 320^2), on
+    Gaussian factors and Q's.  Returns its ms by CUDA events."""
     from repro_torch.optim.soap import _eig_refresh
     gen = torch.Generator(device="cuda").manual_seed(1)
     s = LM_S * SMOL_LAYERS
-    sides = [k for m, n in SMOL_LEAVES for k in (m, n)]
-    qs = {k: torch.randn((s, k, k), generator=gen, device="cuda")
-          / math.sqrt(k) for k in set(sides)}
-    pairs = [(torch.randn((s, k, k), generator=gen, device="cuda")
-              / math.sqrt(k), qs[k]) for k in sides]
+    sides = [({f: torch.randn((s, k, k), generator=gen, device="cuda")
+               / math.sqrt(k) for f in ("P", "Q")}, "Q", "P")
+             for m, n in SMOL_LEAVES for k in (m, n)]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    _eig_refresh(pairs, "qr")
+    qs = list(_eig_refresh(sides, "qr"))
     end.record()
     end.synchronize()
+    del qs
     return start.elapsed_time(end)
 
 
@@ -4056,6 +4299,7 @@ def smollm_kernel_rows(dev):
 PHASES = {"serve": lambda dev: serve_smollm(),
           "smollm_kernel_rows": smollm_kernel_rows,
           "smollm_newton_schulz": smollm_newton_schulz,
+          "householder_qr": householder_qr_rows,
           "dryrun": dryrun_pod, "mesh executor": mesh_executor,
           "fed_round llama-350m": fed_round_llama350m,
           # whether 5 clients fit the card: run alone, not by main
@@ -4130,6 +4374,7 @@ def run_all(dev, dry, t_start):
         fresh_phase(f"serve {arch}")
     smol_rows = fresh_phase("smollm_kernel_rows")
     smol_ns = fresh_phase("smollm_newton_schulz")
+    qr_rows = fresh_phase("householder_qr")
     # LLaMA-350M's 4-client round holds ~70 GB: it runs while this
     # process holds next to nothing on the card
     fed350 = fresh_phase("fed_round llama-350m")
@@ -4213,7 +4458,14 @@ def run_all(dev, dry, t_start):
             route="cuda",
             source="src/repro_torch/kernels/csrc/newton_schulz.cu",
             replaces="src/repro/kernels/ns_ortho/ops.py:31"),
+        "householder_qr": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/householder_qr.cu",
+            replaces="none: the reference's QR is XLA's "
+                     "(src/repro/optim/soap.py:45)"),
     }
+    errs["householder_qr"] = qr_rows["vit"]["err"]["lapack"]
+    timings["householder_qr"] = qr_rows["vit"]["timings"]
     kernels = [dict(name=name, **meta[name], launches=launches[name],
                     max_abs_err=errs[name], **timings[name])
                for name in meta]
@@ -4234,6 +4486,21 @@ def run_all(dev, dry, t_start):
         name="newton_schulz@smollm-360m", **meta["newton_schulz"],
         launches=smol_steps["muon"]["newton_schulz"],
         max_abs_err=smol_ns["err"], **smol_ns["timings"]["newton_schulz"]))
+    # SOAP's QR refresh at SmolLM-360M (S=2), launched by the SmolLM SOAP
+    # rounds, and at max_precond_dim, where the refresh takes
+    # torch.linalg.qr and the kernel is timed forced
+    kernels.append(dict(name="householder_qr@smollm-360m",
+                        **meta["householder_qr"],
+                        launches=smol_launches["householder_qr"],
+                        max_abs_err=qr_rows["smol"]["err"]["lapack"],
+                        **qr_rows["smol"]["timings"]))
+    big = qr_rows["route"][-1]
+    kernels.append(dict(name=f"householder_qr@{QR_MAX_SIDE}",
+                        **meta["householder_qr"], launches=0,
+                        refresh=big["route"], max_abs_err=big["lapack"],
+                        ms=big["kernel_ms"], library_ms=big["library_ms"],
+                        bound_ms=big["bound_ms"], bound_by="operations",
+                        gflop=big["gflop"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@ version:
                           (csrc/qblock.cu: one grouped launch)
   fused_agg/kernel.py     dequant_accumulate, dequant_accumulate_group
                           CUDA C++ (csrc/fused_agg.cu: one grouped launch)
+  householder_qr/kernel.py  householder_qr_group  CUDA C++
+                          (csrc/householder_qr.cu: SOAP's QR refresh in
+                          place, one grouped launch; replaces no TPU
+                          kernel: the reference's QR is XLA's)
 
 The grouped kernels take a table of leaves or matrices by value
 (``grouped.py``, ``csrc/grouped.cuh``).  Each wrapper counts its launches in

@@ -27,6 +27,7 @@ LAUNCH_COUNTERS = (
     ("adam_moments", "repro_torch.kernels.soap_rotate.kernel"),
     ("matmul_fused", "repro_torch.kernels.ns_ortho.kernel"),
     ("newton_schulz_group", "repro_torch.kernels.ns_ortho.ops"),
+    ("householder_qr_group", "repro_torch.kernels.householder_qr.kernel"),
     ("quantize", "repro_torch.kernels.qblock.kernel"),
     ("dequant_accumulate", "repro_torch.kernels.fused_agg.kernel"),
     ("sophia_update", "repro_torch.kernels.sophia_update.kernel"),

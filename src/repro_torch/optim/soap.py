@@ -32,23 +32,33 @@ beta = b2, aux = L/R), then Q_L^T G, G Q_R, ``adam_moments`` per leaf, Q_L
 N and N Q_R^T — the per-leaf math and order of ``soap_rotated_update``.  A
 ViT-Tiny step is 5 launches of ``matmul_fused`` instead of 288.  The Adam
 fallback goes through ``adam_moments``.  The refresh product P @ Q stays
-a library call, as the reference leaves it to XLA; so does the QR
-(``sharding.ops.qr_q``: on a DTensor, the dry-run's, it runs on
-the replicated product).  The ``"ns"`` refresh orthogonalises every side
-of every matrix leaf in one ``newton_schulz_group`` call: one
-``newton_schulz`` launch a refresh.  The refresh is traced as the
-``soap_refresh`` span of the live tracer (``obs.trace.current()``).
+a library call, as the reference leaves it to XLA.  On the card the QR
+refresh takes every side of every matrix leaf in one ``householder_qr``
+launch at f32 state (at a narrower ``state_dtype`` in groups whose f32
+products hold at most twice the largest: ``refresh_groups``), the
+hand-written kernel overwriting the products with their Q's, where the
+kernel takes the group (``householder_qr.kernel.takes``: its matrices
+fit shared memory or fill the card).  Any other group, and every QR off
+the card, goes side by side to ``sharding.ops.qr_q``: ``torch.linalg.qr``,
+and on a DTensor, the dry-run's, on the replicated product.  The ``"ns"``
+refresh orthogonalises every side of every matrix leaf in one
+``newton_schulz_group`` call: one ``newton_schulz`` launch a refresh.
+The refresh is traced as the ``soap_refresh`` span of the live tracer
+(``obs.trace.current()``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.householder_qr.kernel import (
+    householder_qr_group, takes_group,
+)
 from repro_torch.kernels.ns_ortho.kernel import matmul_fused_group
 from repro_torch.kernels.ns_ortho.ops import newton_schulz_group
 from repro_torch.kernels.soap_rotate.kernel import adam_moments
 from repro_torch.obs.trace import current as current_tracer
 from repro_torch.optim.api import LocalOptimizer, as_matrix, matrix_mask
-from repro_torch.sharding.ops import qr_q
+from repro_torch.sharding.ops import is_dtensor, qr_q
 from repro_torch.utils.tree import (
     tree_flatten_with_path, tree_get, tree_map, tree_map_with_path,
 )
@@ -57,16 +67,54 @@ from repro_torch.utils.tree import (
 EIG_METHODS = ("qr", "ns")
 
 
-def _eig_refresh(pairs, method: str):
-    """Eigenvectors(P, Q) for every (P, Q) of ``pairs``: one power
-    iteration, then QR (the paper's Alg. 4) matrix by matrix, or
-    Newton–Schulz over all of them in one grouped call.  QR takes the
-    pairs one at a time from an iterable and yields each result, so that
-    a pair's operands and product live only for its own QR."""
+def _on_kernel(qs) -> bool:
+    """Whether the QR of the sides whose Q's are ``qs`` runs on the
+    hand-written kernel: plain CUDA tensors, of a group it takes."""
+    return bool(qs) and all(not is_dtensor(q) and q.device.type == "cuda"
+                            for q in qs) and takes_group(qs)
+
+
+def _eig_refresh(sides, method: str):
+    """Eigenvectors(P, Q) of each side ``(state, Q key, P key)`` of
+    ``sides``, P and Q in f32 as the reference's: one power iteration,
+    then QR (the paper's Alg. 4) or Newton–Schulz; the new Q's in f32.
+    Newton–Schulz, and a QR that the kernel takes (``_on_kernel``), run
+    over all the products in one launch; the kernel overwrites each
+    product, which takes the state's old Q's place as it is made.  Any
+    other QR goes side by side through ``qr_q``, lazily: a side's product
+    lives only for its own QR."""
+    def product(st, q, f):
+        return torch.matmul(st[f].to(torch.float32), st[q].to(torch.float32))
+
     if method == "ns":
-        return newton_schulz_group([torch.matmul(p_mat, q)
-                                    for p_mat, q in pairs])
-    return (qr_q(torch.matmul(p_mat, q)) for p_mat, q in pairs)
+        return newton_schulz_group([product(*side) for side in sides])
+    if not _on_kernel([st[q] for st, q, _ in sides]):
+        return (qr_q(product(*side)) for side in sides)
+    prods = []
+    for st, q, f in sides:
+        prods.append(product(st, q, f))
+        st[q] = prods[-1]
+    return householder_qr_group(prods)
+
+
+def refresh_groups(numels, whole: bool):
+    """The sides (indices into ``numels``, each side's element count)
+    that one QR refresh call takes together: all of them where ``whole``
+    (f32 state: the QR overwrites the f32 products, which become the new
+    Q's), else runs in order whose f32 products hold at most twice the
+    largest side's, about what one product, its Q and the library's
+    workspace held when every QR went to the library."""
+    if whole or not numels:
+        return [list(range(len(numels)))]
+    budget = 2 * max(numels)
+    groups, held = [[]], 0
+    for i, k in enumerate(numels):
+        if groups[-1] and held + k > budget:
+            groups.append([])
+            held = 0
+        groups[-1].append(i)
+        held += k
+    return groups
 
 
 def _is_state_leaf(x):
@@ -143,17 +191,20 @@ def make(b1: float = 0.95, b2: float = 0.95, eps: float = 1e-8,
                     slots.append((i, key))
         for (i, key), out in zip(slots, matmul_fused_group(problems)):
             new[i][key] = out
-        # 2. the scheduled eigenbasis refresh, every side of every leaf;
-        # the refresh's operands (f32 casts, as the reference's) are made
-        # one pair at a time and dropped after its QR
+        # 2. the scheduled eigenbasis refresh, every side of every leaf
         if step % precond_freq == 0:
             with current_tracer().span("soap_refresh"):
                 sides = [(st, q, f) for st in new
                          for q, f in (("QL", "L"), ("QR", "R")) if q in st]
-                qs = iter(_eig_refresh(((st[f].to(f32), st[q].to(f32))
-                                        for st, q, f in sides), eig_method))
-                for st, q, _ in sides:
-                    st[q] = next(qs).to(sd)
+                groups = refresh_groups(
+                    [st[q].numel() for st, q, _ in sides],
+                    eig_method == "ns" or sd == f32)
+                for idx in groups:
+                    part = [sides[i] for i in idx]
+                    qs = _eig_refresh(part, eig_method)
+                    for (st, q, _), qn in zip(part, qs):
+                        st[q] = qn.to(sd)
+                    del qs       # a group's f32 Q's go before the next's
 
         # 3-4. G' = Q_L^T G Q_R
         rot = _phase(gs, new, "QL", lambda q, g: (q.transpose(-1, -2), g))

@@ -49,6 +49,17 @@ Tolerances:
     and the drift's plain reductions.
   * ``obs.profile_kernels``: a "ref" and a "kernel" row per triad, and
     each kernel output within its own bound above of the plain output.
+  * householder_qr_group (one launch of its own kernel, in place): on
+    inputs G/sqrt(k) + 3 I (singular values in about [2, 4], so every
+    column of Q is well determined) Q within 1e-4 of torch.linalg.qr's and
+    of the plain version's (LAPACK's conventions on both sides; f32
+    Householder QR errs by O(k u) times the condition number), max |Q^T Q
+    - I| <= 1e-5 and ||Q Q^T A - A|| / ||A|| <= 1e-5 (k u sqrt(k) for k <=
+    4096); on a rank-deficient L and a zero input the same orthogonality
+    (a zero input gives exactly I); two calls bitwise equal.
+  * SOAP's refresh with the kernel against the same step with
+    torch.linalg.qr, on full-rank SPD factors: each leaf's direction
+    within 0.03 of the other's norm (the ViT cell's ``grad.r1`` limit).
 """
 import os
 import pathlib
@@ -64,6 +75,9 @@ from repro_torch.kernels.ns_ortho.kernel import (
 )
 from repro_torch.kernels.soap_rotate.kernel import (
     adam_moments, adam_moments_plain,
+)
+from repro_torch.kernels.householder_qr.kernel import (
+    householder_qr_group, householder_qr_plain,
 )
 from repro_torch.kernels.fused_agg.kernel import (
     MAX_LEAVES as DA_MAX_LEAVES, dequant_accumulate,
@@ -389,6 +403,200 @@ def test_muon_step_on_the_card_matches_the_cpu_step(cuda):
                         err = (got - want).abs()
                         assert bool((err <= 1e-5 * want.abs().clamp(
                             min=1.0)).all()), (name, a, b)
+
+
+# ViT-Tiny's 96 refresh sides (12 blocks of wqkv, wo, w1, w2) at S=20
+VIT_QR_SIDES = [192, 576, 192, 192, 192, 768, 768, 192] * 12
+
+
+def _qr_inputs(gen, s, sides, dev):
+    return [(_randn(gen, s, k, k, dev=dev) / k ** 0.5
+             + 3 * torch.eye(k, device=dev)) for k in sides]
+
+
+def _orth_gap(q):
+    eye = torch.eye(q.shape[-1], device=q.device, dtype=q.dtype)
+    return float((q.mT @ q - eye).abs().max())
+
+
+def _assert_qr(xs, qs, plain=True):
+    for x, q in zip(xs, qs):
+        assert q.shape == x.shape and q.dtype == torch.float32
+        eye = torch.eye(x.shape[-1], device=x.device)
+        assert float((q.mT @ q - eye).abs().max()) <= 1e-5, tuple(x.shape)
+        rec = torch.linalg.vector_norm(q @ (q.mT @ x) - x)
+        assert float(rec / torch.linalg.vector_norm(x)) <= 1e-5
+        assert float((q - torch.linalg.qr(x)[0]).abs().max()) <= 1e-4
+        if plain:
+            want = householder_qr_plain([x])[0]
+            assert float((q - want).abs().max()) <= 1e-4, tuple(x.shape)
+
+
+@pytest.mark.parametrize("case", ["vit", "lm", "4096"])
+def test_householder_qr_group_matches_lapack_and_plain(cuda, case):
+    """ViT-Tiny's refresh in one mixed group (one launch), LM SOAP's
+    sides (2 x 960, 2 x 2560) and one 4096^2 matrix (its panels through
+    device memory); two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(31)
+    xs = {"vit": lambda: _qr_inputs(gen, 20, VIT_QR_SIDES, cuda),
+          "lm": lambda: _qr_inputs(gen, 2, [960, 2560], cuda),
+          "4096": lambda: _qr_inputs(gen, 1, [4096], cuda)}[case]()
+    before = householder_qr_group.launches
+    got = householder_qr_group([x.clone() for x in xs])
+    torch.cuda.synchronize()
+    assert householder_qr_group.launches == before + 1
+    again = householder_qr_group([x.clone() for x in xs])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_qr(xs, got, plain=case != "4096")
+
+
+def test_householder_qr_group_rank_deficient_zero_and_ragged(cuda):
+    """L after one EMA step (rank 40 of 192), a zero input (Q = I), the
+    identity, and ragged sizes (tall, n not a multiple of the panel or of
+    4, one resident and one through device memory), each within the bounds
+    above."""
+    gen = torch.Generator().manual_seed(37)
+    g = _randn(gen, 4, 192, 40, dev=cuda)
+    low = 0.05 * g @ g.mT
+    zero = torch.zeros(2, 576, 576, device=cuda)
+    eye = torch.eye(200, device=cuda).expand(3, 200, 200).contiguous()
+    ragged = [_randn(gen, 3, 70, 33, dev=cuda), _randn(gen, 2, 301, 257,
+                                                       dev=cuda),
+              _randn(gen, 1, 1, dev=cuda), _randn(gen, 5, 129, 97, dev=cuda)]
+    got = householder_qr_group([x.clone() for x in
+                                [low, zero, eye, *ragged]])
+    q = got[0]
+    assert float((q.mT @ q - torch.eye(192, device=cuda)).abs().max()) \
+        <= 1e-5
+    assert float(torch.linalg.vector_norm(q @ (q.mT @ low) - low)
+                 / torch.linalg.vector_norm(low)) <= 1e-5
+    assert torch.equal(got[1], torch.eye(576, device=cuda).expand(2, 576,
+                                                                  576))
+    assert torch.equal(got[2], eye)
+    for x, q in zip(ragged, got[3:]):
+        want = householder_qr_plain([x])[0]
+        assert float((q - want).abs().max()) <= 1e-4, tuple(x.shape)
+        assert float((q - torch.linalg.qr(x)[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-40, 1e25])
+def test_householder_qr_group_extreme_scales(cuda, scale):
+    """Entries whose squares underflow (1e-30, subnormal 1e-40) or
+    overflow (1e25), in shared memory and through device memory: the
+    scaled norm and slarfg's rescaling keep Q orthogonal and its first
+    column (one reflector of the input itself) the plain version's; at
+    normal magnitudes all of Q.  Subnormal entries carry ~1e-5 of relative
+    precision, and the blocked and unblocked updates round them
+    differently, so there only Q Q^T A = A is held (in f64, to 1e-3)."""
+    gen = torch.Generator().manual_seed(47)
+    xs = [torch.randn(2, 40, 40, generator=gen) * scale,
+          torch.randn(1, 300, 300, generator=gen) * scale]
+    got = householder_qr_group([x.to(cuda) for x in xs])
+    for x, q in zip(xs, got):
+        q = q.cpu()
+        want = householder_qr_plain([x])[0]
+        assert bool(torch.isfinite(q).all())
+        assert _orth_gap(q) <= 1e-5, tuple(x.shape)
+        assert float((q[..., 0] - want[..., 0]).abs().max()) <= 1e-5
+        if scale >= 1e-30:
+            assert float((q - want).abs().max()) <= 1e-4, tuple(x.shape)
+        a, qd = x.double(), q.double()
+        rec = torch.linalg.vector_norm(qd @ (qd.mT @ a) - a)
+        assert float(rec / torch.linalg.vector_norm(a)) <= 1e-3
+
+
+def test_householder_qr_group_rejects_bad_inputs(cuda):
+    x = torch.ones(3, 4, 4, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        householder_qr_group([x.double()])
+    with pytest.raises(ValueError, match="contiguous"):
+        householder_qr_group([torch.ones(3, 4, 8, device=cuda)[..., :4]])
+    with pytest.raises(ValueError, match="m >= n"):
+        householder_qr_group([torch.ones(3, 4, device=cuda)])
+    with pytest.raises(ValueError, match="several devices"):
+        householder_qr_group([x, x.cpu()])
+
+
+def _soap_vit(gen, s, dev):
+    """ViT-Tiny's 48 matrix leaves at S=s, SOAP state from a warm start:
+    full-rank SPD L and R (G G^T / k + I), Q's from a previous refresh."""
+    from repro_torch.optim import soap
+    shapes = [(192, 576), (192, 192), (192, 768), (768, 192)] * 12
+    params = {f"w{i}": _randn(gen, s, m, n, dev=dev)
+              for i, (m, n) in enumerate(shapes)}
+    grads = {k: _randn(gen, *v.shape, dev=dev) for k, v in params.items()}
+    opt = soap.make()
+    st = opt.init(params, lead=1)
+    for k, leaf in st["mat"].items():
+        for f in ("L", "R"):
+            a = _randn(gen, *leaf[f].shape, dev=dev)
+            leaf[f] = a @ a.mT / a.shape[-1] + torch.eye(a.shape[-1],
+                                                         device=dev)
+    return opt, params, grads, st
+
+
+def test_soap_refresh_launches_the_kernel_not_cusolver(cuda):
+    """A SOAP step at its refresh on ViT-Tiny (S=20): one householder_qr
+    launch, and no cuSOLVER QR kernel (geqr, orgqr, larf) in its trace."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(41)
+    opt, params, grads, st = _soap_vit(gen, 20, cuda)
+    before = householder_qr_group.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt.update(grads, st, params, 0, lead=1)
+        torch.cuda.synchronize()
+    assert householder_qr_group.launches == before + 1
+    names = [e.key.lower() for e in prof.key_averages()]
+    assert any("householder" in k for k in names)
+    assert not [k for k in names if any(p in k for p in
+                                        ("geqr", "orgqr", "larf"))]
+
+
+def test_soap_step_with_the_kernel_matches_torch_linalg_qr(cuda,
+                                                          monkeypatch):
+    """One ViT-Tiny S=20 SOAP step at its refresh: the kernel against the
+    same step with torch.linalg.qr in its place, each leaf's direction
+    within 0.03 of the other's norm."""
+    from repro_torch.optim import soap
+    gen = torch.Generator().manual_seed(43)
+    opt, params, grads, st = _soap_vit(gen, 20, cuda)
+    got, _ = opt.update(grads, st, params, 0, lead=1)
+    monkeypatch.setattr(soap, "_on_kernel", lambda qs: False)
+    want, _ = opt.update(grads, st, params, 0, lead=1)
+    for k, w in want.items():
+        gap = torch.linalg.vector_norm(got[k] - w)
+        assert float(gap / torch.linalg.vector_norm(w)) <= 0.03, k
+
+
+def test_takes_group_counts_the_cards_resident_ctas(cuda):
+    """A group of matrices too large for shared memory goes to the kernel
+    from as many as the card holds CTAs at once."""
+    from repro_torch.kernels.householder_qr import kernel as hqr
+    r = hqr.kernel_library().resident_blocks()
+    assert r >= 1
+    assert hqr.takes_group([torch.empty(r, 300, 300, device=cuda)])
+    assert not hqr.takes_group([torch.empty(r - 1, 300, 300, device=cuda)])
+    assert hqr.takes_group([torch.empty(1, 192, 192, device=cuda)])
+
+
+def test_soap_refresh_sends_few_large_sides_to_torch_linalg_qr(cuda):
+    """A SOAP refresh of four matrices of 600 and 300 (fewer than the
+    card's CTAs, none in shared memory) launches no kernel; its Q's are
+    orthogonal."""
+    from repro_torch.optim import soap
+    gen = torch.Generator().manual_seed(53)
+    params = {"w": _randn(gen, 2, 600, 300, dev=cuda)}
+    grads = {"w": _randn(gen, 2, 600, 300, dev=cuda)}
+    opt = soap.make()
+    st = opt.init(params, lead=1)
+    st["mat"]["w"]["L"] = grads["w"] @ grads["w"].mT
+    st["mat"]["w"]["R"] = grads["w"].mT @ grads["w"]
+    before = householder_qr_group.launches
+    _, new = opt.update(grads, st, params, 0, lead=1)
+    torch.cuda.synchronize()
+    assert householder_qr_group.launches == before
+    for q in ("QL", "QR"):
+        assert _orth_gap(new["mat"]["w"][q]) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", [(5, 192, 576), (7,), (3, 40, 50)])
